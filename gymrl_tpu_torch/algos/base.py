@@ -1,0 +1,118 @@
+"""Shared trainer scaffolding (counterpart of ``gymrl_tpu/algos/base.py``).
+
+A ``Trainer`` exposes:
+
+  * ``init(seed) -> TrainState`` — build params, optimizer, env batch, noise
+  * ``train_iter(ts) -> (ts, IterOut)`` — one iteration of the algorithm
+  * ``policy(ts, obs, noise, deterministic) -> action`` — batched, for eval
+
+The JAX trainers are pure and jitted; here ``train_iter`` runs eagerly and
+updates the parameters and optimizer held by ``ts`` in place (PyTorch's
+idiom), returning the state with its new env batch and counters.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from gymrl_tpu_torch.utils.device import resolve_device
+
+
+class IterOut(NamedTuple):
+    """Per-iteration outputs. ``ep_return[t, b]`` is valid where ``ep_done[t, b]``."""
+
+    ep_return: torch.Tensor  # f32[T, B]
+    ep_length: torch.Tensor  # i32[T, B]
+    ep_done: torch.Tensor  # bool[T, B]
+    metrics: dict[str, torch.Tensor]  # scalars, already averaged over the iter
+
+
+# Called with a phase's name as that phase of train_iter ends.
+PhaseTimer = Callable[[str], None]
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Mean over entries where mask (reference ppo_lstm_lunarlander.py:646-655)."""
+    mask = mask.to(x.dtype)
+    return (x * mask).sum() / (mask.sum() + eps)
+
+
+def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """optax ``clip_by_global_norm``, in place: ``g · max/‖g‖`` only when
+    ``‖g‖ ≥ max``. (``torch.nn.utils.clip_grad_norm_`` divides by
+    ``‖g‖ + 1e-6`` and scales whenever the norm exceeds the bound, which is
+    not the reference's update.) No host sync: the choice is a tensor op.
+    Returns the global norm before clipping."""
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
+         foreach: bool) -> torch.optim.Adam:
+    """``torch.optim.Adam`` with its state made at construction, as optax's
+    ``init`` makes it: step 0 and zero moments. Its bias-corrected update
+    equals optax's ``adam`` up to rounding."""
+    opt = torch.optim.Adam(params, lr=lr, eps=eps, foreach=foreach)
+    for p in params:
+        opt.state[p] = {
+            "step": torch.tensor(0.0),
+            "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+            "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format),
+        }
+    return opt
+
+
+class Trainer:
+    """Base: holds cfg + device; subclasses implement the API."""
+
+    def __init__(self, cfg, device: str | torch.device = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def init(self, seed: int = 0) -> Any:
+        raise NotImplementedError
+
+    def train_iter(self, ts, timer: PhaseTimer | None = None) -> tuple[Any, IterOut]:
+        raise NotImplementedError
+
+    def policy(self, ts, obs, noise, deterministic: bool = True):
+        raise NotImplementedError
+
+    # -- carry-through policy surface ----------------------------------------
+    def policy_reset(self, batch: int):
+        """Initial policy carry for a fresh batch of episodes (None = stateless)."""
+        return None
+
+    def policy_step(self, ts, carry, obs, noise, deterministic: bool = True):
+        """One policy step threading ``carry``: returns (carry', action[b])."""
+        return carry, self.policy(ts, obs, noise, deterministic)
+
+    @torch.no_grad()
+    def eval_episodes(self, ts, noise, n_episodes: int):
+        """Deterministic eval: n parallel fresh episodes until each is done.
+
+        Rewards count only until each instance's first done (latched mask),
+        so stopping once every episode is done gives the reference's result
+        without stepping to ``max_steps``. Returns (returns f32[n], lengths i32[n]).
+        """
+        env = self.venv.env
+        params = self.venv.params
+        state, obs = env.reset_batch(params, noise, n_episodes)
+        done = torch.zeros(n_episodes, dtype=torch.bool, device=obs.device)
+        ret = torch.zeros(n_episodes, device=obs.device)
+        length = torch.zeros(n_episodes, dtype=torch.int32, device=obs.device)
+        for _ in range(env.max_steps):
+            action = self.policy(ts, obs, noise, deterministic=True)
+            sr = env.step_batch(params, state, action, noise)
+            alive = ~done
+            ret = ret + sr.reward * alive
+            length = length + alive.to(torch.int32)
+            done = done | sr.terminated | sr.truncated
+            state, obs = sr.state, sr.obs
+            if bool(done.all()):
+                break
+        return ret, length

@@ -1,0 +1,350 @@
+"""PPO on vectorized envs (counterpart of ``gymrl_tpu/algos/ppo.py``).
+
+Algorithm parity with reference algorithms/ppo_lunarlander.py, unchanged
+from the JAX trainer:
+  * shared 2x256 tanh trunk, tanh actor/critic heads, orthogonal init
+    gain √2 (policy head 0.01, value head 1.0)
+  * Adam(3e-4, eps=1e-5), linear lr anneal with env steps
+  * GAE(γ=0.99, λ=0.95) with rollout-wide advantage standardization
+  * clipped surrogate + dual-clip 3.0:
+    adv<0 ? max(min(surr1,surr2), 3·adv) : min(surr1,surr2)
+  * value MSE ·0.5, entropy bonus 0.01, grad-norm clip 0.5 (optax form)
+  * metrics: policy/value loss, entropy, clip_frac, approx_kl
+
+One ``train_iter``: a T-step rollout of B lockstep envs (forward → Gumbel-max
+sample → batched env step with autoreset), one batched next-value forward
+over all T·B successors, GAE and standardization, then epochs of shuffled
+minibatches over the packed ``[N, obs+4]`` rows. Every random draw comes
+from ``ts.noise`` in the reference's order, so a replaying noise source
+reproduces the JAX trainer's iteration.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.func import functional_call
+
+from gymrl_tpu_torch.algos.base import (
+    IterOut, PhaseTimer, Trainer, adam, clip_grads_by_global_norm_,
+)
+from gymrl_tpu_torch.core.gae import compute_gae, standardize
+from gymrl_tpu_torch.core.noise import Noise
+from gymrl_tpu_torch.core.normalization import (
+    RunningMeanStd,
+    normalize_obs,
+    rms_init,
+    rms_update_batch,
+)
+from gymrl_tpu_torch.envs.registry import make_vec
+from gymrl_tpu_torch.envs.rollout import VecState
+from gymrl_tpu_torch.nn import initializers as gl_init
+from gymrl_tpu_torch.nn.layers import Dense
+
+
+@dataclass(frozen=True)
+class PPOConfig:
+    env_name: str = "LunarLander-v3"
+    num_envs: int = 32
+    rollout_steps: int = 64  # T; total horizon = T·num_envs (ref: 2048 total)
+    num_epochs: int = 10
+    minibatch_size: int = 64  # in samples (ref batch_size)
+    gamma: float = 0.99
+    gae_lambda: float = 0.95
+    clip_eps: float = 0.2
+    dual_clip: float = 3.0
+    entropy_coef: float = 0.01
+    value_coef: float = 0.5
+    max_grad_norm: float = 0.5
+    lr: float = 3e-4
+    adam_eps: float = 1e-5
+    anneal_lr: bool = True
+    hidden_dim: int = 256
+    normalize_obs: bool = False  # plain PPO matches ref (no state_norm)
+    max_train_steps: int = 1_000_000
+    solve_threshold: float = 200.0
+    # bf16 on the (no-grad) rollout forward: params and obs cast to bf16
+    # inside the forward, logits/values upcast to f32 before sampling/GAE.
+    rollout_bf16: bool = False
+    # bf16 compute in the SGD loss forward/backward. The cast happens inside
+    # the loss (torch.func.functional_call on bf16 copies of the params), so
+    # autograd returns f32 grads on the f32 master params.
+    sgd_bf16: bool = False
+    # One Adam over all parameters as one multi-tensor ("foreach") update,
+    # the counterpart of the reference's Adam over one raveled vector: the
+    # same math, fewer and wider kernels. Off: one update per tensor.
+    flat_optimizer: bool = False
+    # XLA scan-unroll knobs of the reference. Accepted so configs carry over;
+    # they change nothing here (the loops are Python loops).
+    sgd_unroll: int = 1
+    rollout_unroll: int = 1
+
+    @property
+    def batch_total(self) -> int:
+        return self.num_envs * self.rollout_steps
+
+    @property
+    def num_minibatches(self) -> int:
+        if self.batch_total % self.minibatch_size != 0:
+            raise ValueError(
+                f"T·B={self.batch_total} must divide by minibatch {self.minibatch_size}"
+            )
+        return self.batch_total // self.minibatch_size
+
+
+class ActorCritic(nn.Module):
+    """Shared tanh trunk + tanh actor/critic heads (ref ppo_lunarlander.py:63-118).
+
+    Submodule names are the flax module's, so weights map across by name
+    (``interop.params_from_flax``).
+    """
+
+    def __init__(self, obs_dim: int, n_actions: int, hidden_dim: int = 256,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        ortho = gl_init.orthogonal()
+        g = generator
+        self.shared_0 = Dense(obs_dim, hidden_dim, ortho, generator=g)
+        self.shared_1 = Dense(hidden_dim, hidden_dim, ortho, generator=g)
+        self.actor_0 = Dense(hidden_dim, hidden_dim, ortho, generator=g)
+        self.actor_head = Dense(hidden_dim, n_actions, gl_init.orthogonal(0.01), generator=g)
+        self.critic_0 = Dense(hidden_dim, hidden_dim, ortho, generator=g)
+        self.critic_head = Dense(hidden_dim, 1, gl_init.orthogonal(1.0), generator=g)
+
+    def forward(self, x):
+        trunk = torch.tanh(self.shared_1(torch.tanh(self.shared_0(x))))
+        logits = self.actor_head(torch.tanh(self.actor_0(trunk)))
+        value = self.critic_head(torch.tanh(self.critic_0(trunk)))
+        return logits, value.squeeze(-1)
+
+
+class PPOTrainState(NamedTuple):
+    params: ActorCritic  # its parameters are the f32 master weights
+    opt_state: torch.optim.Adam  # holds references to params' tensors
+    vec_state: VecState
+    obs_rms: RunningMeanStd
+    noise: Noise  # the reference's `key`
+    env_steps: int
+
+
+class Rollout(NamedTuple):
+    obs: torch.Tensor  # f32[T, B, obs] — normalized if cfg.normalize_obs
+    action: torch.Tensor  # i32[T, B]
+    logp: torch.Tensor  # f32[T, B]
+    value: torch.Tensor  # f32[T, B]
+    reward: torch.Tensor  # f32[T, B]
+    next_obs: torch.Tensor  # f32[T, B, obs] — true successor (terminal at done)
+    terminated: torch.Tensor  # f32[T, B]
+    done: torch.Tensor  # f32[T, B]
+
+
+def categorical_logp_entropy(logits, action):
+    logp_all = torch.log_softmax(logits, dim=-1)
+    logp = logp_all.gather(-1, action.long()[..., None]).squeeze(-1)
+    entropy = -(torch.exp(logp_all) * logp_all).sum(dim=-1)
+    return logp, entropy
+
+
+def forward_bf16(net: nn.Module, obs: torch.Tensor):
+    """``net(obs)`` computed in bf16 with f32 outputs. The bf16 copies of the
+    params are made inside the call, so gradients reach the f32 masters."""
+    bf16 = torch.bfloat16
+    cparams = {k: v.to(bf16) for k, v in net.named_parameters()}
+    logits, value = functional_call(net, cparams, (obs.to(bf16),))
+    return logits.float(), value.float()
+
+
+class PPOTrainer(Trainer):
+    def __init__(self, cfg: PPOConfig, device: str | torch.device = "cuda"):
+        super().__init__(cfg, device)
+        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+        self.obs_dim = self.venv.env.obs_dim
+        self.n_actions = self.venv.env.n_actions
+
+    # -- API ------------------------------------------------------------------
+    def init(self, seed: int = 0) -> PPOTrainState:
+        """Fresh state. Params come from a CPU generator seeded ``seed`` (the
+        same weights on every device); env and training noise from a
+        generator on the trainer's device."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(seed)
+        net = ActorCritic(self.obs_dim, self.n_actions, cfg.hidden_dim, generator=gen)
+        net = net.to(self.device)
+        noise = Noise(self.device, seed)
+        return PPOTrainState(
+            params=net,
+            opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
+                           foreach=cfg.flat_optimizer),
+            vec_state=self.venv.reset(noise),
+            obs_rms=rms_init((self.obs_dim,), self.device),
+            noise=noise,
+            env_steps=0,
+        )
+
+    @torch.no_grad()
+    def policy(self, ts: PPOTrainState, obs, noise, deterministic: bool = True):
+        obs = self._norm(ts.obs_rms, obs)
+        logits, _ = ts.params(obs)
+        if not deterministic:
+            logits = logits + noise.gumbel(logits.shape)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def train_iter(self, ts: PPOTrainState,
+                   timer: PhaseTimer | None = None) -> tuple[PPOTrainState, IterOut]:
+        """One iteration; updates ``ts.params`` / ``ts.opt_state`` in place.
+
+        ``timer``, if given, is called with "rollout", "gae" and "sgd" as
+        each phase ends (chip_smoke.py times the phases with CUDA events).
+        """
+        cfg = self.cfg
+        mark = timer or (lambda phase: None)
+        vec_state, obs_rms, roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+        mark("rollout")
+
+        with torch.no_grad():
+            # Values of true successors in ONE batched forward (bootstrap for
+            # truncation; terminated steps are masked by (1-dw) inside GAE).
+            next_nobs = self._norm(obs_rms, roll.next_obs)
+            _, next_values = self._rollout_forward(
+                ts.params, next_nobs.reshape(-1, self.obs_dim)
+            )
+            next_values = next_values.reshape(roll.value.shape)
+            adv, v_target = compute_gae(
+                roll.reward, roll.value, next_values, roll.terminated, roll.done,
+                cfg.gamma, cfg.gae_lambda,
+            )
+            adv = standardize(adv)  # rollout-wide (ref :236)
+
+            # The loss reads (obs, action, logp, adv, v_target): pack them into
+            # ONE [N, obs+4] matrix so each epoch's shuffle is one row gather.
+            # Actions round-trip exactly through f32.
+            n = cfg.batch_total
+            packed = torch.cat(
+                [
+                    roll.obs.reshape(n, self.obs_dim),
+                    roll.action.reshape(n, 1).float(),
+                    roll.logp.reshape(n, 1),
+                    adv.reshape(n, 1),
+                    v_target.reshape(n, 1),
+                ],
+                dim=1,
+            )
+        mark("gae")
+
+        lr = self._lr(ts.env_steps)
+        for group in ts.opt_state.param_groups:
+            group["lr"] = lr
+        perms = ts.noise.permutations(cfg.num_epochs, n)
+        metrics = self._sgd(ts, packed, perms)
+        mark("sgd")
+
+        new_ts = ts._replace(vec_state=vec_state, obs_rms=obs_rms, env_steps=ts.env_steps + n)
+        out = IterOut(
+            ep_return=ep_ret,
+            ep_length=ep_len,
+            ep_done=ep_done,
+            metrics=metrics | {"lr": torch.full((), lr, device=self.device)},
+        )
+        return new_ts, out
+
+    # -- internals ------------------------------------------------------------
+    def _norm(self, rms, obs):
+        return normalize_obs(rms, obs) if self.cfg.normalize_obs else obs
+
+    def _rollout_forward(self, net, obs):
+        """Policy forward on the (no-grad) rollout path."""
+        if self.cfg.rollout_bf16:
+            return forward_bf16(net, obs)
+        return net(obs)
+
+    def _lr(self, env_steps: int) -> float:
+        """lr for this iteration (ref :337-341), computed in float32 as the
+        reference computes it."""
+        lr = np.float32(self.cfg.lr)
+        if self.cfg.anneal_lr:
+            frac = np.float32(1.0) - np.float32(env_steps) / np.float32(self.cfg.max_train_steps)
+            lr = lr * np.maximum(frac, np.float32(0.0))
+        return float(lr)
+
+    @torch.no_grad()
+    def _collect(self, ts: PPOTrainState):
+        cfg = self.cfg
+        vec_state, obs_rms, noise = ts.vec_state, ts.obs_rms, ts.noise
+        steps = []
+        for _ in range(cfg.rollout_steps):
+            nobs = self._norm(obs_rms, vec_state.obs)
+            logits, value = self._rollout_forward(ts.params, nobs)
+            # Gumbel-max: jax.random.categorical's own sampler
+            action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
+            logp, _ = categorical_logp_entropy(logits, action)
+            vec_state, tr = self.venv.step(vec_state, action, noise)
+            if cfg.normalize_obs:
+                obs_rms = rms_update_batch(obs_rms, tr.next_obs)
+            steps.append((
+                Rollout(
+                    obs=nobs, action=action, logp=logp, value=value,
+                    reward=tr.reward, next_obs=tr.next_obs,
+                    terminated=tr.terminated.float(), done=tr.done.float(),
+                ),
+                (tr.final_return, tr.final_length, tr.done),
+            ))
+        roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
+        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+        return vec_state, obs_rms, roll, stats
+
+    def _loss(self, net, obs, action, logp_old, adv, returns):
+        cfg = self.cfg
+        if cfg.sgd_bf16:
+            logits, values = forward_bf16(net, obs)
+        else:
+            logits, values = net(obs)
+        logp, entropy = categorical_logp_entropy(logits, action)
+        ratio = torch.exp(logp - logp_old)
+        surr1 = ratio * adv
+        surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
+        min_surr = torch.minimum(surr1, surr2)
+        # dual-clip (ref :285-292)
+        policy_obj = torch.where(
+            adv < 0.0, torch.maximum(min_surr, cfg.dual_clip * adv), min_surr
+        )
+        policy_loss = -policy_obj.mean()
+        value_loss = cfg.value_coef * torch.square(values - returns).mean()
+        entropy_mean = entropy.mean()
+        loss = policy_loss + value_loss - cfg.entropy_coef * entropy_mean
+        clip_frac = ((ratio < 1.0 - cfg.clip_eps) | (ratio > 1.0 + cfg.clip_eps)).float().mean()
+        approx_kl = (logp_old - logp).mean()
+        return loss, {
+            "policy_loss": policy_loss,
+            "value_loss": value_loss,
+            "entropy": entropy_mean,
+            "clip_frac": clip_frac,
+            "approx_kl": approx_kl,
+        }
+
+    def _sgd(self, ts: PPOTrainState, packed: torch.Tensor, perms: torch.Tensor):
+        """Epochs of shuffled minibatches; returns metrics averaged over all
+        gradient steps."""
+        cfg = self.cfg
+        net, opt = ts.params, ts.opt_state
+        params = list(net.parameters())
+        d = self.obs_dim
+        history = []
+        for perm in perms:
+            # one shuffle gather per epoch, then contiguous minibatch slices
+            mb_xs = packed[perm].reshape(cfg.num_minibatches, cfg.minibatch_size, d + 4)
+            for mb in mb_xs:
+                loss, metrics = self._loss(
+                    net, mb[:, :d], mb[:, d].to(torch.int32), mb[:, d + 1],
+                    mb[:, d + 2], mb[:, d + 3],
+                )
+                opt.zero_grad(set_to_none=True)
+                loss.backward()
+                clip_grads_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+                opt.step()
+                history.append(torch.stack([m.detach() for m in metrics.values()]))
+        means = torch.stack(history).mean(dim=0)
+        return dict(zip(metrics.keys(), means.unbind()))

@@ -1,0 +1,66 @@
+"""The port's random source: the counterpart of a ``jax.random`` key.
+
+The JAX trainers thread a key through their train state and split it for
+every draw. Here one ``Noise`` object owns a ``torch.Generator`` on the
+trainer's device and hands out every draw the main path makes:
+
+  * the Gumbel noise of action sampling (``gumbel``),
+  * the environment's draws for a batched reset or step (``env_reset`` /
+    ``env_step``, which ask the env what it needs),
+  * the per-epoch minibatch permutations (``permutations``).
+
+Nothing else in the port draws random numbers, so a test can hand a trainer
+an object with these four methods that replays the JAX reference's own key
+splits, and compare the two frameworks draw for draw.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# float32 tiny: the lower end of jax.random.gumbel's uniform (mode "low").
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+class Noise:
+    def __init__(self, device: str | torch.device, seed: int = 0):
+        self.device = torch.device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+
+    # -- primitive draws -----------------------------------------------------
+    def uniform(self, shape, low: float = 0.0, high: float = 1.0) -> torch.Tensor:
+        u = torch.rand(shape, generator=self.generator, device=self.device)
+        return u * (high - low) + low
+
+    def randint(self, low: int, high: int, shape) -> torch.Tensor:
+        """int32 in ``[low, high)`` — ``jax.random.randint``'s bounds."""
+        return torch.randint(low, high, shape, generator=self.generator,
+                             device=self.device, dtype=torch.int32)
+
+    # -- what the main path asks for -----------------------------------------
+    def gumbel(self, shape) -> torch.Tensor:
+        """Standard Gumbel, ``-log(-log(u))`` with ``u ~ U[tiny, 1)``, as
+        ``jax.random.gumbel`` computes it."""
+        u = torch.rand(shape, generator=self.generator, device=self.device)
+        return -torch.log(-torch.log(u.clamp_(min=_F32_TINY)))
+
+    def permutations(self, count: int, n: int) -> torch.Tensor:
+        """``[count, n]`` int64: one independent permutation of ``n`` per row."""
+        return torch.stack([
+            torch.randperm(n, generator=self.generator, device=self.device)
+            for _ in range(count)
+        ])
+
+    def env_reset(self, env, num: int):
+        return env.reset_draws(self, num)
+
+    def env_step(self, env, num: int):
+        return env.step_draws(self, num)
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        return {"generator": self.generator.get_state()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.generator.set_state(state["generator"])
