@@ -1,7 +1,22 @@
 from gymrl_tpu_torch.algos.base import IterOut, Trainer, masked_mean
+from gymrl_tpu_torch.algos.continuous import (
+    DDPGTrainer,
+    DiscreteSACTrainer,
+    OffPolicyConfig,
+    SACTrainer,
+    TD3Trainer,
+    ddpg_config,
+    sac_config,
+    sac_discrete_config,
+    td3_config,
+)
+from gymrl_tpu_torch.algos.dqn import DQNConfig, DQNTrainer
 from gymrl_tpu_torch.algos.ppo import ActorCritic, PPOConfig, PPOTrainer, PPOTrainState
 
 __all__ = [
     "IterOut", "Trainer", "masked_mean",
+    "DQNConfig", "DQNTrainer",
     "ActorCritic", "PPOConfig", "PPOTrainer", "PPOTrainState",
+    "OffPolicyConfig", "DDPGTrainer", "TD3Trainer", "SACTrainer", "DiscreteSACTrainer",
+    "ddpg_config", "td3_config", "sac_config", "sac_discrete_config",
 ]

@@ -13,9 +13,11 @@ idiom), returning the state with its new env batch and counters.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, NamedTuple
 
 import torch
+from torch import nn
 
 from gymrl_tpu_torch.utils.device import resolve_device
 
@@ -49,6 +51,40 @@ def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> to
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def frozen_copy(net: nn.Module) -> nn.Module:
+    """A target network: a copy of ``net`` whose params take no gradients."""
+    return copy.deepcopy(net).requires_grad_(False)
+
+
+@torch.no_grad()
+def hard_update(target: list[torch.Tensor], online: list[torch.Tensor]) -> None:
+    """target ← online, in place."""
+    torch._foreach_copy_(target, online)
+
+
+@torch.no_grad()
+def soft_update(target: list[torch.Tensor], online: list[torch.Tensor], tau: float) -> None:
+    """Polyak update in place, in the reference's form ``(1-τ)·t + τ·o``
+    (``lerp`` computes ``t + τ·(o-t)``, which rounds differently)."""
+    torch._foreach_mul_(target, 1.0 - tau)
+    torch._foreach_add_(target, torch._foreach_mul(online, tau))
+
+
+@torch.no_grad()
+def clip_grads_by_value_(grads: list[torch.Tensor], clip: float) -> None:
+    """Per-parameter gradient clamp ±clip, in place (reference dqn_cartpole.py:163-165)."""
+    torch._foreach_clamp_min_(grads, -clip)
+    torch._foreach_clamp_max_(grads, clip)
+
+
+def set_grads(params: list[torch.nn.Parameter], loss: torch.Tensor) -> None:
+    """``p.grad = ∂loss/∂p`` for exactly these params. Unlike ``backward``
+    this leaves other modules the loss reads (a critic under an actor loss)
+    without gradients, so no step has to clear them."""
+    for p, g in zip(params, torch.autograd.grad(loss, params)):
+        p.grad = g
 
 
 def adam(params: list[torch.nn.Parameter], lr: float, eps: float,

@@ -4,14 +4,23 @@ The JAX trainers thread a key through their train state and split it for
 every draw. Here one ``Noise`` object owns a ``torch.Generator`` on the
 trainer's device and hands out every draw the main path makes:
 
-  * the Gumbel noise of action sampling (``gumbel``),
+  * the Gumbel noise of categorical action sampling (``gumbel``: PPO and
+    discrete SAC),
   * the environment's draws for a batched reset or step (``env_reset`` /
     ``env_step``, which ask the env what it needs),
-  * the per-epoch minibatch permutations (``permutations``).
+  * the per-epoch minibatch permutations (``permutations``),
+  * DQN's ε-greedy draws (``explore``),
+  * replay indices (``replay_indices``),
+  * standard normals, one method per purpose: exploration noise of a
+    deterministic actor and the SAC actor's sample (``action_noise``),
+    TD3's target-policy smoothing (``target_noise``), and the two SAC
+    update samples (``sac_update_noise``).
 
 Nothing else in the port draws random numbers, so a test can hand a trainer
-an object with these four methods that replays the JAX reference's own key
-splits, and compare the two frameworks draw for draw.
+an object with these methods that replays the JAX reference's own key
+splits, and compare the two frameworks draw for draw. A method is asked for
+where the reference splits the key it draws from, so the order of the calls
+is the order of the reference's splits.
 """
 
 from __future__ import annotations
@@ -51,6 +60,32 @@ class Noise:
             torch.randperm(n, generator=self.generator, device=self.device)
             for _ in range(count)
         ])
+
+    def explore(self, num: int, n_actions: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """ε-greedy draws: ``U[0, 1)[num]`` to compare with ε, and random
+        int32 actions in ``[0, n_actions)``."""
+        return self.uniform((num,)), self.randint(0, n_actions, (num,))
+
+    def replay_indices(self, batch_size: int, high: int) -> torch.Tensor:
+        """``[batch_size]`` int64 indices, uniform in ``[0, high)``."""
+        return torch.randint(0, high, (batch_size,), generator=self.generator,
+                             device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def action_noise(self, shape) -> torch.Tensor:
+        """Standard normals for acting: DDPG/TD3 exploration, the SAC sample."""
+        return self.normal(shape)
+
+    def target_noise(self, shape) -> torch.Tensor:
+        """Standard normals for TD3's target-policy smoothing."""
+        return self.normal(shape)
+
+    def sac_update_noise(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
+        """The SAC update's two samples: for the next-state target, then for
+        the actor loss."""
+        return self.normal(shape), self.normal(shape)
 
     def env_reset(self, env, num: int):
         return env.reset_draws(self, num)

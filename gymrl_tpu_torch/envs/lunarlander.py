@@ -16,7 +16,9 @@ Random draws are arguments, not side effects:
     dispersion ``disp[B, 2]``.
 ``reset_draws`` / ``step_draws`` make those draws from a ``Noise``.
 
-Only the discrete variant is ported; ``continuous=True`` raises.
+``continuous=True`` gives the Box(2) variant: actions ``[B, 2]`` in ±1, main
+throttle in [0.5, 1] when ``a[0] > 0``, side throttle in [0.5, 1] only when
+``|a[1]| > 0.5``, fired on the side of ``sign(a[1])``.
 """
 
 from __future__ import annotations
@@ -189,7 +191,7 @@ def _normal(t0, t1):
 
 
 class LunarLander(Env):
-    """Discrete 4-action lander."""
+    """Discrete 4-action lander; ``continuous=True`` gives the Box(2) variant."""
 
     name = "LunarLander-v3"
     obs_shape = (8,)
@@ -198,12 +200,13 @@ class LunarLander(Env):
     def __init__(self, continuous: bool = False, enable_wind: bool = False,
                  gravity: float = -10.0, wind_power: float = 15.0,
                  turbulence_power: float = 1.5):
-        if continuous:
-            raise NotImplementedError(
-                "the continuous LunarLander is not ported yet (it comes with SAC)"
-            )
-        self.continuous = False
-        self.n_actions = 4
+        self.continuous = bool(continuous)
+        if self.continuous:
+            self.n_actions = None
+            self.act_dim = 2
+            self.action_bound = 1.0
+        else:
+            self.n_actions = 4
         self._init_params = LunarLanderParams(
             gravity=float(gravity),
             enable_wind=bool(enable_wind),
@@ -329,11 +332,19 @@ class LunarLander(Env):
         com = torch.stack([pos[:, 0] - s * COM_Y, pos[:, 1] + co * COM_Y], dim=1)
 
         if contacts:
-            a = action.to(torch.int32)
-            m_power = (a == 2).float()
-            side_on = (a == 1) | (a == 3)
-            direction = torch.where(side_on, a.float() - 2.0, 0.0)
-            s_power = side_on.float()
+            if self.continuous:
+                a = torch.clamp(action.float(), -1.0, 1.0)
+                main, side = a[:, 0], a[:, 1]
+                m_power = torch.where(main > 0.0, (torch.clamp(main, 0.0, 1.0) + 1.0) * 0.5, 0.0)
+                direction = torch.sign(side)
+                s_power = torch.where(torch.abs(side) > 0.5,
+                                      torch.clamp(torch.abs(side), 0.5, 1.0), 0.0)
+            else:
+                a = action.to(torch.int32)
+                m_power = (a == 2).float()
+                side_on = (a == 1) | (a == 3)
+                direction = torch.where(side_on, a.float() - 2.0, 0.0)
+                s_power = side_on.float()
             d = disp / SCALE * params.dispersion_scale
             d0, d1 = d[:, 0], d[:, 1]
 

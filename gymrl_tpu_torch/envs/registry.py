@@ -7,10 +7,14 @@ raises ``KeyError`` listing them.
 from __future__ import annotations
 
 from gymrl_tpu_torch.envs.base import Env
+from gymrl_tpu_torch.envs.cartpole import CartPole
 from gymrl_tpu_torch.envs.lunarlander import LunarLander
+from gymrl_tpu_torch.envs.pendulum import Pendulum
 from gymrl_tpu_torch.envs.rollout import VecEnv
 
 _REGISTRY: dict[str, type[Env]] = {
+    "CartPole-v1": CartPole,
+    "Pendulum-v1": Pendulum,
     "LunarLander-v2": LunarLander,
     "LunarLander-v3": LunarLander,
 }

@@ -1,8 +1,9 @@
-"""Carry weights and env state between the JAX package and the port.
+"""Carry weights and state between the JAX package and the port.
 
 Numpy in, numpy or torch out; nothing here imports JAX. Flax ``Dense``
 kernels are ``[in, out]`` and torch weights ``[out, in]``, so
-``weight = kernel.T``; module names map one to one.
+``weight = kernel.T``; module names map one to one, nested modules by
+dotted path (``{"q1": {"fc1": ...}}`` → ``q1.fc1.weight``).
 """
 
 from __future__ import annotations
@@ -11,63 +12,157 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from gymrl_tpu_torch.envs.lunarlander import LunarLanderState
 from gymrl_tpu_torch.envs.rollout import VecState
+from gymrl_tpu_torch.replay.uniform import ReplayState
 
 
 def _field(x: Any, name: str):
     return x[name] if isinstance(x, Mapping) else getattr(x, name)
 
 
+def _tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)
+
+
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
-    """A flax params tree (``{"params": {name: {"kernel", "bias"}}}`` or its
-    inner dict) of numpy-convertible leaves → a torch ``state_dict``."""
-    layers = tree.get("params", tree)
-    state = {}
-    for name, leaf in layers.items():
-        state[f"{name}.weight"] = torch.from_numpy(np.array(leaf["kernel"], np.float32).T.copy())
-        if "bias" in leaf:
-            state[f"{name}.bias"] = torch.from_numpy(np.array(leaf["bias"], np.float32))
+    """A flax params tree (``{"params": {...}}`` or its inner dict) of
+    numpy-convertible leaves → a torch ``state_dict``. A dict holding a
+    ``kernel`` is a Dense layer; any other dict is a module of layers."""
+    state: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str) -> None:
+        if "kernel" in node:
+            state[f"{prefix}weight"] = torch.from_numpy(
+                np.array(node["kernel"], np.float32).T.copy())
+            if "bias" in node:
+                state[f"{prefix}bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
+            return
+        for name, child in node.items():
+            walk(child, f"{prefix}{name}.")
+
+    walk(tree.get("params", tree), "")
     return state
 
 
 def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
-    """Inverse of ``params_from_flax``: ``{"params": {name: {"kernel", "bias"}}}`` of numpy."""
-    layers: dict[str, dict[str, np.ndarray]] = {}
+    """Inverse of ``params_from_flax``: ``{"params": {...}}`` of numpy."""
+    root: dict[str, Any] = {}
     for key, value in state.items():
-        name, kind = key.rsplit(".", 1)
+        *path, kind = key.split(".")
+        node = root
+        for name in path:
+            node = node.setdefault(name, {})
         arr = value.detach().cpu().numpy()
-        layers.setdefault(name, {})["kernel" if kind == "weight" else "bias"] = (
-            arr.T.copy() if kind == "weight" else arr.copy()
-        )
-    return {"params": layers}
+        if kind == "weight":
+            node["kernel"] = arr.T.copy()
+        else:
+            node["bias"] = arr.copy()
+    return {"params": root}
+
+
+def _scale_by_adam_state(opt_state: Any):
+    """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
+    state (``optax.adam`` is a chain: a tuple of states)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            found = _scale_by_adam_state(s)
+            if found is not None:
+                return found
+    return None
+
+
+def load_adam_state(opt: torch.optim.Adam, params: nn.Module | torch.Tensor,
+                    opt_state: Any) -> None:
+    """Put an optax Adam state (numpy leaves) into the torch Adam ``opt`` over
+    ``params`` (a module, or one parameter such as a 0-dim ``log_alpha``):
+    ``count`` → ``step``, ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``."""
+    adam_state = _scale_by_adam_state(opt_state)
+    if adam_state is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    step = torch.tensor(float(np.asarray(adam_state.count)))
+    if isinstance(params, nn.Module):
+        mu, nu = params_from_flax(adam_state.mu), params_from_flax(adam_state.nu)
+        named = list(params.named_parameters())
+        moments = [(p, mu[name], nu[name]) for name, p in named]
+    else:
+        moments = [(params, _tensor(adam_state.mu), _tensor(adam_state.nu))]
+    for p, m, v in moments:
+        opt.state[p] = {
+            "step": step.clone(),
+            "exp_avg": m.to(device=p.device, dtype=p.dtype).reshape(p.shape).clone(),
+            "exp_avg_sq": v.to(device=p.device, dtype=p.dtype).reshape(p.shape).clone(),
+        }
+
+
+def state_from_numpy(state: Any, cls: type, device: str | torch.device = "cpu"):
+    """A batched env state (a NamedTuple or mapping of numpy arrays with the
+    reference's field names) → the port's state class ``cls``."""
+    return cls(**{f: _tensor(_field(state, f), device) for f in cls._fields})
+
+
+def state_to_numpy(state: Any) -> dict[str, np.ndarray]:
+    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}
 
 
 def lander_state_from_numpy(state: Any, device: str | torch.device = "cpu") -> LunarLanderState:
-    """A batched lander state (a NamedTuple or mapping of numpy arrays with
-    the reference's field names) → the port's ``LunarLanderState``."""
-    return LunarLanderState(**{
-        f: torch.from_numpy(np.array(_field(state, f))).to(device)
-        for f in LunarLanderState._fields
-    })
+    return state_from_numpy(state, LunarLanderState, device)
 
 
-def lander_state_to_numpy(state: LunarLanderState) -> dict[str, np.ndarray]:
-    return {f: getattr(state, f).detach().cpu().numpy() for f in LunarLanderState._fields}
-
-
-def vec_state_from_numpy(vstate: Any, device: str | torch.device = "cpu") -> VecState:
-    """A reference ``VecState`` of numpy arrays (lander env) → the port's."""
+def vec_state_from_numpy(vstate: Any, device: str | torch.device = "cpu",
+                         state_cls: type = LunarLanderState) -> VecState:
+    """A reference ``VecState`` of numpy arrays → the port's; ``state_cls``
+    is the env's state class."""
     return VecState(
-        env_state=lander_state_from_numpy(_field(vstate, "env_state"), device),
-        **{f: torch.from_numpy(np.array(_field(vstate, f))).to(device)
-           for f in ("obs", "ep_return", "ep_length")},
+        env_state=state_from_numpy(_field(vstate, "env_state"), state_cls, device),
+        **{f: _tensor(_field(vstate, f), device) for f in ("obs", "ep_return", "ep_length")},
     )
 
 
 def vec_state_to_numpy(vstate: VecState) -> dict[str, Any]:
     return {
-        "env_state": lander_state_to_numpy(vstate.env_state),
+        "env_state": state_to_numpy(vstate.env_state),
         **{f: getattr(vstate, f).detach().cpu().numpy() for f in ("obs", "ep_return", "ep_length")},
     }
+
+
+def train_state_from_reference(trainer, ref_ts: Any, noise=None):
+    """A whole ``jax.device_get``-ed ``DQNTrainState`` or
+    ``OffPolicyTrainState`` → the port trainer's state: nets, targets and
+    Adam states, replay contents with ``pos`` and ``size``, the env batch
+    and the counters. The JAX key has no torch counterpart: ``noise``
+    replaces it (default: the fresh state's own ``Noise``)."""
+    ts = trainer.init(0)
+    dev = trainer.device
+    replay = ReplayState(
+        data=type(ts.replay.data)(*(_tensor(x, dev) for x in ref_ts.replay.data)),
+        pos=int(ref_ts.replay.pos),
+        size=int(ref_ts.replay.size),
+    )
+    common = dict(
+        replay=replay,
+        vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
+        noise=ts.noise if noise is None else noise,
+        env_steps=int(ref_ts.env_steps),
+    )
+    if hasattr(ref_ts, "target_params"):  # DQN
+        ts.params.load_state_dict(params_from_flax(ref_ts.params))
+        ts.target_params.load_state_dict(params_from_flax(ref_ts.target_params))
+        load_adam_state(ts.opt_state, ts.params, ref_ts.opt_state)
+        return ts._replace(**common,
+                           episodes=_tensor(ref_ts.episodes, dev),
+                           target_syncs=_tensor(ref_ts.target_syncs, dev))
+    for name, net in ts.nets.items():
+        if isinstance(net, nn.Module):
+            net.load_state_dict(params_from_flax(ref_ts.nets[name]))
+        else:
+            with torch.no_grad():
+                net.copy_(_tensor(ref_ts.nets[name]))
+        load_adam_state(ts.opts[name], net, ref_ts.opts[name])
+    for name, target in ts.targets.items():
+        target.load_state_dict(params_from_flax(ref_ts.targets[name]))
+    return ts._replace(**common, learn_steps=int(ref_ts.learn_steps))

@@ -24,13 +24,50 @@ def show_config(cfg, algo: str) -> None:
         logger.info(f"  {k}: {getattr(cfg, k)}")
 
 
+def _dqn_cartpole(device: str):
+    from gymrl_tpu_torch.algos.dqn import DQNConfig, DQNTrainer
+    return DQNTrainer(DQNConfig(), device=device), "DQN", 495.0
+
+
 def _ppo_lunarlander(device: str):
     from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
     return PPOTrainer(PPOConfig(), device=device), "PPO", 200.0
 
 
+def _ppo_cartpole(device: str):
+    from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
+    cfg = PPOConfig(env_name="CartPole-v1", solve_threshold=495.0)
+    return PPOTrainer(cfg, device=device), "PPO", 495.0
+
+
+def _sac_pendulum(device: str):
+    from gymrl_tpu_torch.algos.continuous import SACTrainer, sac_config
+    return SACTrainer(sac_config(), device=device), "SAC", None
+
+
+def _sac_cartpole(device: str):
+    from gymrl_tpu_torch.algos.continuous import DiscreteSACTrainer, sac_discrete_config
+    return DiscreteSACTrainer(sac_discrete_config(), device=device), "SACD", 495.0
+
+
+def _td3_pendulum(device: str):
+    from gymrl_tpu_torch.algos.continuous import TD3Trainer, td3_config
+    return TD3Trainer(td3_config(), device=device), "TD3", None
+
+
+def _ddpg_pendulum(device: str):
+    from gymrl_tpu_torch.algos.continuous import DDPGTrainer, ddpg_config
+    return DDPGTrainer(ddpg_config(), device=device), "DDPG", None
+
+
 WORKLOADS = {
+    "dqn_cartpole": _dqn_cartpole,
     "ppo_lunarlander": _ppo_lunarlander,
+    "ppo_cartpole": _ppo_cartpole,
+    "sac_pendulum": _sac_pendulum,
+    "sac_cartpole": _sac_cartpole,
+    "td3_pendulum": _td3_pendulum,
+    "ddpg_pendulum": _ddpg_pendulum,
 }
 
 

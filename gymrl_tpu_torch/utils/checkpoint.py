@@ -1,8 +1,8 @@
 """Checkpoint / resume (counterpart of ``gymrl_tpu/utils/checkpoint.py``).
 
-The whole train state — params, optimizer moments and step counts, env
-batch, normalization stats, the noise generator's state and the counters —
-is one ``torch.save`` file, so a restore puts training and eval-time
+The whole train state — params, targets, optimizer moments and step
+counts, replay contents, env batch, normalization stats, the noise
+generator's state and the counters — is one ``torch.save`` file, so a restore puts training and eval-time
 normalization back exactly.
 
 Restore is strict. The file must have exactly the structure of the example
@@ -82,9 +82,9 @@ def _check_same(example: Any, loaded: Any, path: str = "ts") -> None:
 
 
 def _load(example: Any, tree: Any) -> Any:
-    """``example`` with ``tree``'s values: modules, optimizers and noise are
-    loaded in place, NamedTuples rebuilt, tensors moved to the example's
-    device."""
+    """``example`` with ``tree``'s values: modules, optimizers, noise and
+    bare parameters (SAC's ``log_alpha``) are loaded in place, NamedTuples
+    rebuilt, other tensors moved to the example's device."""
     if isinstance(example, (nn.Module, torch.optim.Optimizer, Noise)):
         example.load_state_dict(tree)
         return example
@@ -94,6 +94,10 @@ def _load(example: Any, tree: Any) -> Any:
         return {k: _load(v, tree[k]) for k, v in example.items()}
     if isinstance(example, (list, tuple)):
         return type(example)(_load(e, v) for e, v in zip(example, tree))
+    if isinstance(example, nn.Parameter):  # an optimizer holds it: load in place
+        with torch.no_grad():
+            example.copy_(tree)
+        return example
     if isinstance(example, torch.Tensor):
         return tree.to(example.device)
     return tree
