@@ -50,14 +50,49 @@ only if all of them pass.
      stayed on the card, each Adam step count against its cadence (TD3's
      actor on learn steps 0, 2, 4, ...; DQN's target syncs = episodes // 4)
      and that the restored state equals the trained one.
-  7. Kernels: the port has no hand-written kernel (the JAX package has no
-     Pallas kernel to port), so the kernel list is empty.
+  7. PER and FlappyBird: B=8192 FlappyBird states, made on the CPU by a
+     fixed-seed random-action rollout with autoreset, stepped once on the
+     card and once on the CPU with the same actions and respawn draws
+     (fields and reward to 1e-5, at most 8 envs may differ more or in a
+     flag). The PER sum-tree at ddqn_per's capacity 65,536 (batch 64) and
+     rainbow's 32,768 (batch 256): pushes that wrap the ring and priority
+     updates with duplicate indices, the same inputs on both devices; then
+     the tree (every node to rtol 1e-5 of the CPU's, plus 1e-6 of the
+     total: the card's atomics add a level's deltas in any order),
+     ``tree[1]`` against a float64 sum of the leaves (printed, and held to
+     rtol 1e-3: the tree carries the rounding of every past delta, as the
+     JAX package's does bit for bit on the CPU; a push of many equal
+     priorities rounds every delta the same way at the root, so the drift
+     adds up, 4.4e-4 after these pushes on the CPU), and from the same
+     uniforms the sampled leaf indices (exact, except where the target
+     lies within 1e-5 of the total of a leaf boundary; those are counted
+     and printed) and the IS weights (rtol 1e-5).
+  8. DQN-family updates: one update of each of the five family presets at
+     its CLI width, on the card and on the CPU from the same params, the
+     same replay contents, sampled draws and NoisyNet ε (made on the CPU).
+     Losses and β agree to rtol 1e-5, the written-back sum-tree to rtol
+     1e-5 plus 1e-6 of the total, params to 1e-5 under phase 5's rules, the
+     tie rule extended to PReLU's kink and to the net's wiring
+     (``QNet.activation_edges``).
+  9. DQN-family workloads: the CLI's ddqn_per_cartpole,
+     ddqn_per_duel_cartpole, noisy_dqn_cartpole, rainbow_dqn_cartpole and
+     noisy_dqn_flappybird as in phase 6, checking besides the PER fill,
+     ``tree[1] > 0`` and finite, β for its mode (+0.001 per sample capped
+     at 1, or the progress anneal), the target syncs for their mode
+     (episodes // 4, learn steps // freq, or a soft target that moved),
+     and the n-step warm gate: rainbow's replay size and PER ``pos`` equal
+     pushes from the n-th vector step on only (1472 after three
+     iterations, where a push from the first step would give 1536).
+  Last, the kernels: the port has no hand-written kernel (the JAX package
+  has no Pallas kernel to port), so the kernel list is empty.
 
-The last line of output is one JSON object naming the device.
+The line before the last is the kernel list; the last line of output is
+one JSON object naming the device.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -84,6 +119,11 @@ RELU_TIE = 1e-5
 WORKLOADS = ("dqn_cartpole", "ppo_cartpole", "sac_pendulum", "sac_cartpole", "td3_pendulum",
              "ddpg_pendulum")
 WORKLOAD_TIMED_ITERS = 2
+FLAPPY_WARM_STEPS = 120  # random flaps: every bird has died and pipes have respawned
+PER_ROUNDS = 10
+PER_TREE_RTOL = 1e-5
+PER_ROOT_RTOL = 1e-3  # the reference's own drift (module docstring)
+PER_WEIGHT_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -526,15 +566,69 @@ def phase_updates(device: torch.device) -> list[dict]:
 
 
 # -- phase 6: off-policy workloads on the card -----------------------------------------
+def _replay_sizes(cfg, iters: int) -> list[int]:
+    """The replay's fill after each env step of ``iters`` off-policy
+    iterations from a fresh state: a push per env step, except in the
+    first n−1 steps of an n-step window."""
+    warm = getattr(cfg, "n_steps", 1) - 1
+    return [min(max(t + 1 - warm, 0) * cfg.num_envs, cfg.memory_capacity)
+            for t in range(iters * cfg.steps_per_iter)]
+
+
 def _expected_updates(cfg, iters: int) -> int:
     """Updates of ``iters`` off-policy iterations from a fresh state: n_updates
     per env step once the replay holds a batch."""
-    per_step = cfg.n_updates
-    total = 0
-    for t in range(iters * cfg.steps_per_iter):
-        if min((t + 1) * cfg.num_envs, cfg.memory_capacity) >= cfg.batch_size:
-            total += per_step
-    return total
+    return sum(cfg.n_updates for size in _replay_sizes(cfg, iters) if size >= cfg.batch_size)
+
+
+def _check_family(name: str, cfg, ts, ts0, iters: int) -> dict:
+    """Phase 9's checks of a DQN-family state after ``iters`` iterations."""
+    import numpy as np
+
+    from gymrl_tpu_torch.core.schedules import per_beta_anneal
+
+    sizes = _replay_sizes(cfg, iters)
+    pushes = sum(1 for t in range(len(sizes)) if t >= getattr(cfg, "n_steps", 1) - 1)
+    updates = _expected_updates(cfg, iters)
+    out = {"replay_size": ts.replay.size, "learn_steps": ts.learn_steps,
+           "episodes": int(ts.episodes), "target_syncs": int(ts.target_syncs),
+           "beta": float(ts.beta)}
+    # Also the n-step warm gate: ``sizes`` counts no push in the first n−1
+    # vector steps, and the replay has not filled.
+    if ts.replay.size != sizes[-1]:
+        raise AssertionError(f"{name}: replay size {ts.replay.size} != {sizes[-1]}")
+    if ts.learn_steps != updates:
+        raise AssertionError(f"{name}: learn_steps {ts.learn_steps} != {updates}")
+    if _adam_counts(ts.opt_state) != {updates}:
+        raise AssertionError(f"{name}: Adam counts {_adam_counts(ts.opt_state)} != {updates}")
+    if cfg.use_per:
+        total = float(ts.replay.tree[1])
+        out.update(pos=ts.replay.pos, tree_total=total, max_priority=float(ts.replay.max_priority))
+        if ts.replay.pos != pushes * cfg.num_envs % cfg.memory_capacity:
+            raise AssertionError(f"{name}: PER pos {ts.replay.pos}")
+        if not (math.isfinite(total) and total > 0):
+            raise AssertionError(f"{name}: tree[1] = {total}")
+        if cfg.per_beta_increment > 0:
+            want = np.float32(cfg.per_beta0)
+            for _ in range(updates):  # the trainer's own float32 steps
+                want = min(np.float32(1.0), np.float32(want + np.float32(cfg.per_beta_increment)))
+        else:
+            last = ts.env_steps - cfg.num_envs
+            want = float(per_beta_anneal(last, cfg.max_train_steps, cfg.per_beta0))
+    else:
+        want = cfg.per_beta0
+    if abs(float(ts.beta) - float(want)) > 1e-6 * float(want):
+        raise AssertionError(f"{name}: beta {float(ts.beta)} != {float(want)}")
+    if cfg.target_mode == "soft":
+        target = ts.target_params.state_dict()
+        start = ts0.target_params.state_dict()
+        if all(torch.equal(target[k], start[k]) for k in target):
+            raise AssertionError(f"{name}: the soft target did not move")
+    else:
+        counter = int(ts.episodes) if cfg.target_mode == "hard_episode" else ts.learn_steps
+        if int(ts.target_syncs) != counter // cfg.target_update_freq:
+            raise AssertionError(f"{name}: {int(ts.target_syncs)} target syncs at {counter}")
+    return out
 
 
 def _state_tensors(ts) -> dict[str, torch.Tensor]:
@@ -568,7 +662,8 @@ def _adam_counts(opt) -> set[int]:
 
 
 def phase_workloads(device: torch.device, names=WORKLOADS,
-                    timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5) -> list[dict]:
+                    timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5,
+                    label: str = "phase 6 workload") -> list[dict]:
     from gymrl_tpu_torch.run import cli
     from gymrl_tpu_torch.run.loop import TrainLoop
     from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
@@ -586,6 +681,8 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
         if hasattr(ts0, "targets"):
             initial_targets = {k: {n: v.clone() for n, v in m.state_dict().items()}
                                for k, m in ts0.targets.items()}
+        if hasattr(ts0, "target_params"):
+            ts_start = ts0._replace(target_params=copy.deepcopy(ts0.target_params))
         cwd = os.getcwd()
         with tempfile.TemporaryDirectory() as tmp:
             os.chdir(tmp)  # the loop saves to ./checkpoints
@@ -629,6 +726,8 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
             "workload": name, "env_steps": ts.env_steps, "warmup_iter_s": warm_s,
             "env_steps_per_s": timed_iters * per_iter / sum(walls),
             "updates_per_s": timed_updates / sum(walls),
+            "ms_per_update": (sum(ph.get("update", ph.get("sgd", 0.0)) for ph in phases)
+                              / max(timed_updates, 1)),
             "iter_wall_ms": [w * 1e3 for w in walls],
             "phase_ms": {p: [ph[p] for ph in phases] for p in phases[0]},
             "peak_memory_bytes": peak, "metrics": metrics,
@@ -650,6 +749,8 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
             want = iters * cfg.num_epochs * cfg.num_minibatches
             if _adam_counts(ts.opt_state) != {want}:
                 raise AssertionError(f"{name}: Adam counts {_adam_counts(ts.opt_state)} != {want}")
+        elif hasattr(ts, "beta"):  # the DQN family
+            result.update(_check_family(name, cfg, ts, ts_start, iters))
         else:
             updates = _expected_updates(cfg, iters)
             if ts.replay.size != min(iters * per_iter, cfg.memory_capacity):
@@ -679,7 +780,268 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
         if restored.env_steps != ts.env_steps:
             raise AssertionError(f"{name}: restored env_steps differ")
         result["checkpoint_restored"] = True
-        log("phase 6 workload: " + json.dumps(result))
+        log(f"{label}: " + json.dumps(result))
+        results.append(result)
+    return results
+
+
+# -- phase 7: PER and FlappyBird, card vs CPU ----------------------------------------------
+def phase_flappy(device: torch.device, num: int = CLASSIC_ENVS) -> dict:
+    from gymrl_tpu_torch.envs.flappybird import FlappyBird
+
+    result = compare_env_step(FlappyBird(), device, num, FLAPPY_WARM_STEPS, CLASSIC_ATOL)
+    log("phase 7 flappybird: " + json.dumps(result))
+    return result
+
+
+def _per_case(device: torch.device, capacity: int, batch: int, rounds: int = PER_ROUNDS) -> dict:
+    """The same pushes, priority updates and sample on the CPU and ``device``."""
+    from collections import namedtuple
+
+    from gymrl_tpu_torch.replay.per import (
+        per_init, per_push_batch, per_sample, per_update_priorities,
+    )
+
+    Item = namedtuple("Item", "obs action")
+    gen = torch.Generator().manual_seed(capacity)
+    devices = (torch.device("cpu"), device)
+    example = Item(torch.zeros(4), torch.zeros((), dtype=torch.int32))
+    states = [per_init(example, capacity, d) for d in devices]
+    chunk = capacity // 8
+    for r in range(rounds):  # 10 chunks of capacity/8: the ring wraps
+        items = Item(torch.randn((chunk, 4), generator=gen),
+                     torch.randint(0, 2, (chunk,), generator=gen, dtype=torch.int32))
+        idx = torch.randint(0, min((r + 1) * chunk, capacity), (batch,), generator=gen)
+        idx[batch // 2:batch // 2 + 8] = idx[0]  # duplicates: the first occurrence wins
+        pri = (torch.rand(batch, generator=gen) * 1.5 + 1e-4) ** 0.6
+        for i, d in enumerate(devices):
+            st = per_push_batch(states[i], Item(*(x.to(d) for x in items)))
+            states[i] = per_update_priorities(st, idx.to(d), pri.to(d))
+
+    class Uniforms:
+        def __init__(self, u, d):
+            self.u, self.d = u, d
+
+        def per_uniforms(self, n):
+            return self.u[:n].to(self.d)
+
+    u = torch.rand(batch, generator=gen)
+    samples = [per_sample(st, Uniforms(u, d), batch, 0.4) for st, d in zip(states, devices)]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    cpu, dev = states[0], states[1]
+    tree_cpu, tree_dev = cpu.tree.double(), dev.tree.cpu().double()
+    total = float(tree_cpu[1])
+    tree_err = (tree_dev - tree_cpu).abs()
+    tree_ok = tree_err <= PER_TREE_RTOL * tree_cpu.abs() + 1e-6 * total
+    leaves = cpu.tree[capacity:].double()
+    root_rel = abs(total - float(leaves.sum())) / float(leaves.sum())
+    (_, idx_cpu, w_cpu), (_, idx_dev, w_dev) = samples
+    idx_dev, w_dev = idx_dev.cpu(), w_dev.cpu()
+    differ = idx_cpu != idx_dev
+    # a differing index is a boundary tie if its target sits within 1e-5 of the
+    # total of the float64 prefix sum between the two leaves
+    prefix = torch.cumsum(leaves, 0)
+    target = (torch.arange(batch, dtype=torch.float64) + u.double()) * (total / batch)
+    lo = torch.minimum(idx_cpu, idx_dev)[differ]
+    boundary = (target[differ] - prefix[lo]).abs() <= 1e-5 * total
+    same = ~differ
+    w_err = float(((w_dev[same] - w_cpu[same]).abs() / w_cpu[same].abs()).max())
+    result = {
+        "capacity": capacity, "batch": batch, "size": cpu.size, "pos": cpu.pos,
+        "total": total, "tree_max_abs_err": float(tree_err.max()),
+        "tree_max_rel_err": float((tree_err / tree_cpu.abs().clamp(min=1e-30)).max()),
+        "root_vs_float64_leaf_sum_rel": root_rel,
+        "max_priority": [float(cpu.max_priority), float(dev.max_priority)],
+        "indices_differ": int(differ.sum()), "boundary_ties": int(boundary.sum()),
+        "weights_max_rel_err": w_err,
+    }
+    log("phase 7 per: " + json.dumps(result))
+    if not bool(tree_ok.all()):
+        raise AssertionError(f"PER tree differs on the card: {result}")
+    if root_rel > PER_ROOT_RTOL:
+        raise AssertionError(f"tree[1] drifted from the leaf sum: {result}")
+    if cpu.max_priority.item() != dev.max_priority.item():
+        raise AssertionError(f"max priority differs: {result}")
+    if not bool(boundary.all()):
+        raise AssertionError(f"sampled indices differ away from a boundary: {result}")
+    if not w_err <= PER_WEIGHT_RTOL:
+        raise AssertionError(f"IS weights differ: {result}")
+    return result
+
+
+def phase_per(device: torch.device, cases=((65536, 64), (32768, 256))) -> list[dict]:
+    return [_per_case(device, cap, batch) for cap, batch in cases]
+
+
+# -- phase 8: DQN-family updates, card vs CPU ------------------------------------------------
+FAMILY = ("ddqn_per_cartpole", "ddqn_per_duel_cartpole", "noisy_dqn_cartpole",
+          "rainbow_dqn_cartpole", "noisy_dqn_flappybird")
+
+
+class FamilyDraws:
+    """The draws of one family update, made on the CPU and handed out on any
+    device: the sample's uniforms or indices and the NoisyNet ε."""
+
+    def __init__(self, device, u, idx, eps):
+        self.device, self.u, self.idx, self.eps = device, u, idx, eps
+
+    def per_uniforms(self, batch_size):
+        return self.u.to(self.device)
+
+    def replay_indices(self, batch_size, high):
+        return self.idx.to(self.device)
+
+    def noisy_update(self, layers, count):
+        return [[(a.to(self.device), b.to(self.device)) for a, b in draw]
+                for draw in self.eps[:count]]
+
+
+def _watch_family_ties(net) -> tuple[list, list]:
+    """Forward hooks on the net's activation producers recording their
+    outputs in grad-enabled forwards. Returns (records, hook handles)."""
+    records, handles = [], []
+    modules = dict(net.named_modules())
+    for name in {e[0] for e in net.activation_edges()}:
+        def hook(mod, args, out, name=name):
+            if torch.is_grad_enabled():
+                records.append((name, out.detach().reshape(-1, out.shape[-1])))
+        handles.append(modules[name].register_forward_hook(hook))
+    return records, handles
+
+
+def _family_exempt(net, records) -> dict[str, torch.Tensor]:
+    """Phase 5's rules for a family net: tiny gradients, and for a
+    pre-activation within RELU_TIE of a ReLU/PReLU kink, the unit's output
+    column and the consumers' input rows (``NoisyDense`` kernels are
+    ``[in, out]``, ``Dense`` weights ``[out, in]``)."""
+    from gymrl_tpu_torch.nn.layers import NoisyDense
+
+    masks = {}
+    for k, p in net.named_parameters():
+        a = p.grad.abs()
+        masks[k] = a < torch.clamp(TINY_GRAD * a.max(), min=TINY_GRAD)
+    modules = dict(net.named_modules())
+
+    def mark(layer, index, out_side):
+        noisy = isinstance(modules[layer], NoisyDense)
+        kernels = ("kernel_mu", "kernel_sigma") if noisy else ("weight",)
+        for k in kernels:
+            m = masks[f"{layer}.{k}"]
+            if noisy == out_side:  # a column of [in, out] or a column of [out, in]
+                m[:, index] = True
+            else:
+                m[index, :] = True
+        if out_side:
+            for k in (("bias_mu", "bias_sigma") if noisy else ("bias",)):
+                masks[f"{layer}.{k}"][index] = True
+
+    edges = net.activation_edges()
+    for producer, out in records:
+        units = (out.abs() < RELU_TIE).any(dim=0).cpu()
+        if not bool(units.any()):
+            continue
+        mark(producer, units.nonzero().flatten(), True)
+        for p, consumer, lo, hi, offset in edges:
+            if p == producer:
+                u = units[lo:hi].nonzero().flatten() + lo
+                if len(u):
+                    mark(consumer, u + offset, False)
+    return masks
+
+
+def _family_update_case(name: str, device: torch.device, gen: torch.Generator):
+    """A trainer at the CLI config of ``name`` on ``device``, its fresh state
+    and a replay filled with 4·batch random transitions (and, with PER, random
+    priorities)."""
+    from gymrl_tpu_torch.algos.dqn_variants import Transition
+    from gymrl_tpu_torch.replay.per import per_push_batch, per_update_priorities
+    from gymrl_tpu_torch.replay.uniform import replay_push_batch
+    from gymrl_tpu_torch.run import cli
+
+    trainer, _, _ = cli.WORKLOADS[name](str(device))
+    ts = trainer.init(0)
+    cfg, d = trainer.cfg, trainer.obs_dim
+    n = 4 * cfg.batch_size
+    obs = torch.randn((n, d), generator=gen)
+    done = (torch.rand(n, generator=gen) < 0.1).float()
+    batch = Transition(obs, torch.randint(0, trainer.n_actions, (n,), generator=gen,
+                                          dtype=torch.int32),
+                       torch.randn(n, generator=gen), obs + 0.1 * torch.randn((n, d), generator=gen),
+                       done * (torch.rand(n, generator=gen) < 0.7).float(), done)
+    batch = Transition(*(x.to(device) for x in batch))
+    if cfg.use_per:
+        replay = per_push_batch(ts.replay, batch)
+        pri = (torch.rand(n, generator=gen) + 0.01) ** cfg.per_alpha
+        replay = per_update_priorities(replay, torch.arange(n, device=device), pri.to(device))
+    else:
+        replay = replay_push_batch(ts.replay, batch)
+    return trainer, ts._replace(replay=replay)
+
+
+def phase_family_updates(device: torch.device, names=FAMILY) -> list[dict]:
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.nn.layers import noisy_layers
+    from gymrl_tpu_torch.replay.per import PERState
+
+    results = []
+    cpu = torch.device("cpu")
+    for name in names:
+        (cpu_tr, cpu_ts), (dev_tr, dev_ts) = (
+            _family_update_case(name, d, torch.Generator().manual_seed(11)) for d in (cpu, device))
+        cfg = cpu_tr.cfg
+        layers = noisy_layers(cpu_ts.params)
+        gen = torch.Generator().manual_seed(13)
+        u = torch.rand(cfg.batch_size, generator=gen)
+        idx = torch.randint(0, cpu_ts.replay.size, (cfg.batch_size,), generator=gen)
+        eps = Noise(cpu, 17).noisy_update(layers, 2) if cfg.noisy else []
+        records, handles = _watch_family_ties(cpu_ts.params)
+        out = {}
+        for key, tr, ts, d in (("cpu", cpu_tr, cpu_ts, cpu), ("dev", dev_tr, dev_ts, device)):
+            ts = ts._replace(noise=FamilyDraws(d, u, idx, eps))
+            out[key] = tr._update(ts, ts.replay, ts.beta, layers)
+            if key == "cpu":
+                for h in handles:
+                    h.remove()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        exempt = _family_exempt(cpu_ts.params, records)
+        want = dict(cpu_ts.params.named_parameters())
+        got = dict(dev_ts.params.named_parameters())
+        worst = worst_exempt = 0.0
+        n_exempt = 0
+        for k, w in want.items():
+            e = (got[k].detach().cpu().double() - w.detach().double()).abs()
+            ok = (e <= PARAM_ATOL) | (exempt[k] & (e <= 2.0 * cfg.lr))
+            if not bool(ok.all()):
+                raise AssertionError(f"{name}: {k} differs by {float(e.max())} on the card")
+            if bool((~exempt[k]).any()):
+                worst = max(worst, float(e[~exempt[k]].max()))
+            if bool(exempt[k].any()):
+                worst_exempt = max(worst_exempt, float(e[exempt[k]].max()))
+            n_exempt += int(exempt[k].sum())
+        (rep_c, beta_c, loss_c), (rep_d, beta_d, loss_d) = out["cpu"], out["dev"]
+        loss_c, loss_d = float(loss_c), float(loss_d)
+        result = {"workload": name, "batch": cfg.batch_size, "loss_cpu": loss_c,
+                  "loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+                  "param_max_abs_err": worst, "exempt_entries": n_exempt,
+                  "exempt_max_abs_err": worst_exempt,
+                  "beta": [float(beta_c), float(beta_d)]}
+        if isinstance(rep_c, PERState):
+            t_c, t_d = rep_c.tree.double(), rep_d.tree.cpu().double()
+            result["tree_max_rel_err"] = float(((t_d - t_c).abs()
+                                                / t_c.abs().clamp(min=1e-30)).max())
+            result["max_priority"] = [float(rep_c.max_priority), float(rep_d.max_priority)]
+            if not bool(((t_d - t_c).abs() <= UPDATE_RTOL * t_c.abs() + 1e-6 * float(t_c[1])).all()):
+                raise AssertionError(f"{name}: written-back priorities differ: {result}")
+            mp = result["max_priority"]
+            if abs(mp[1] - mp[0]) > UPDATE_RTOL * mp[0]:
+                raise AssertionError(f"{name}: max priority differs: {result}")
+        log("phase 8 family update: " + json.dumps(result))
+        if result["loss_rel_err"] > UPDATE_RTOL:
+            raise AssertionError(f"{name}: loss {loss_d} on the card, {loss_c} on the CPU")
+        if abs(result["beta"][1] - result["beta"][0]) > UPDATE_RTOL * result["beta"][0]:
+            raise AssertionError(f"{name}: beta differs: {result}")
         results.append(result)
     return results
 
@@ -703,8 +1065,12 @@ def main() -> int:
     phase_classic(device)
     phase_updates(device)
     phase_workloads(device)
-    log(json.dumps({"kernels": []}))
+    phase_flappy(device)
+    phase_per(device)
+    phase_family_updates(device)
+    phase_workloads(device, FAMILY, label="phase 9 family workload")
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
+    log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

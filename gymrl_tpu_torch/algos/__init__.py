@@ -11,11 +11,22 @@ from gymrl_tpu_torch.algos.continuous import (
     td3_config,
 )
 from gymrl_tpu_torch.algos.dqn import DQNConfig, DQNTrainer
+from gymrl_tpu_torch.algos.dqn_variants import (
+    DQNFamilyConfig,
+    DQNFamilyTrainer,
+    ddqn_per_config,
+    ddqn_per_duel_config,
+    noisy_dqn_config,
+    noisy_dqn_flappybird_config,
+    rainbow_config,
+)
 from gymrl_tpu_torch.algos.ppo import ActorCritic, PPOConfig, PPOTrainer, PPOTrainState
 
 __all__ = [
     "IterOut", "Trainer", "masked_mean",
     "DQNConfig", "DQNTrainer",
+    "DQNFamilyConfig", "DQNFamilyTrainer", "ddqn_per_config", "ddqn_per_duel_config",
+    "noisy_dqn_config", "noisy_dqn_flappybird_config", "rainbow_config",
     "ActorCritic", "PPOConfig", "PPOTrainer", "PPOTrainState",
     "OffPolicyConfig", "DDPGTrainer", "TD3Trainer", "SACTrainer", "DiscreteSACTrainer",
     "ddpg_config", "td3_config", "sac_config", "sac_discrete_config",

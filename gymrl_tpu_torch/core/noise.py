@@ -10,7 +10,11 @@ trainer's device and hands out every draw the main path makes:
     ``env_step``, which ask the env what it needs),
   * the per-epoch minibatch permutations (``permutations``),
   * DQN's ε-greedy draws (``explore``),
-  * replay indices (``replay_indices``),
+  * replay indices (``replay_indices``) and PER's stratified uniforms
+    (``per_uniforms``),
+  * the NoisyNet ε of a noisy forward, for acting (``noisy_act``: one
+    draw per batch row) and for an update's online forwards
+    (``noisy_update``: one shared draw per forward),
   * standard normals, one method per purpose: exploration noise of a
     deterministic actor and the SAC actor's sample (``action_noise``),
     TD3's target-policy smoothing (``target_noise``), and the two SAC
@@ -86,6 +90,31 @@ class Noise:
         """The SAC update's two samples: for the next-state target, then for
         the actor loss."""
         return self.normal(shape), self.normal(shape)
+
+    def per_uniforms(self, batch_size: int) -> torch.Tensor:
+        """``U[0, 1)[batch_size]``: one uniform per PER sampling segment."""
+        return self.uniform((batch_size,))
+
+    def _noisy_eps(self, layers, rows: int | None) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """``f(ε) = sign(ε)·√|ε|`` of standard normals, as ``(eps_in,
+        eps_out)`` per noisy layer of ``layers`` (``(in, out)`` pairs in
+        call order): ``[in]``/``[out]``, or ``[rows, in]``/``[rows, out]``.
+        One draw and one scaling for the whole forward."""
+        lead = () if rows is None else (rows,)
+        sizes = [n for pair in layers for n in pair]
+        flat = self.normal(lead + (sum(sizes),))
+        flat = torch.sign(flat) * torch.sqrt(torch.abs(flat))
+        parts = flat.split(sizes, dim=-1)
+        return list(zip(parts[0::2], parts[1::2]))
+
+    def noisy_act(self, layers, rows: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """The ε of one acting forward: an independent draw per batch row."""
+        return self._noisy_eps(layers, rows)
+
+    def noisy_update(self, layers, count: int) -> list[list[tuple[torch.Tensor, torch.Tensor]]]:
+        """The ε of an update's ``count`` noisy online forwards (on obs, then
+        on next_obs for the double-DQN argmax), each shared by the batch."""
+        return [self._noisy_eps(layers, None) for _ in range(count)]
 
     def env_reset(self, env, num: int):
         return env.reset_draws(self, num)

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from gymrl_tpu_torch.envs.base import Env
 from gymrl_tpu_torch.envs.cartpole import CartPole
+from gymrl_tpu_torch.envs.flappybird import FlappyBird
 from gymrl_tpu_torch.envs.lunarlander import LunarLander
 from gymrl_tpu_torch.envs.pendulum import Pendulum
 from gymrl_tpu_torch.envs.rollout import VecEnv
@@ -17,6 +18,7 @@ _REGISTRY: dict[str, type[Env]] = {
     "Pendulum-v1": Pendulum,
     "LunarLander-v2": LunarLander,
     "LunarLander-v3": LunarLander,
+    "FlappyBird-v0": FlappyBird,
 }
 
 

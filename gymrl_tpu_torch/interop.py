@@ -16,6 +16,7 @@ from torch import nn
 
 from gymrl_tpu_torch.envs.lunarlander import LunarLanderState
 from gymrl_tpu_torch.envs.rollout import VecState
+from gymrl_tpu_torch.replay.per import PERState
 from gymrl_tpu_torch.replay.uniform import ReplayState
 
 
@@ -29,19 +30,22 @@ def _tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
 
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """A flax params tree (``{"params": {...}}`` or its inner dict) of
-    numpy-convertible leaves → a torch ``state_dict``. A dict holding a
-    ``kernel`` is a Dense layer; any other dict is a module of layers."""
+    numpy-convertible leaves → a torch ``state_dict``. A ``kernel`` leaf is a
+    ``Dense`` weight (transposed); every other leaf keeps its name and
+    layout (a bias, ``NoisyDense``'s ``kernel_mu``/``kernel_sigma``/
+    ``bias_mu``/``bias_sigma``, ``PReLU``'s 0-dim ``negative_slope``);
+    a dict is a module, by dotted path."""
     state: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
-        if "kernel" in node:
-            state[f"{prefix}weight"] = torch.from_numpy(
-                np.array(node["kernel"], np.float32).T.copy())
-            if "bias" in node:
-                state[f"{prefix}bias"] = torch.from_numpy(np.array(node["bias"], np.float32))
-            return
         for name, child in node.items():
-            walk(child, f"{prefix}{name}.")
+            if isinstance(child, Mapping):
+                walk(child, f"{prefix}{name}.")
+            elif name == "kernel":
+                state[f"{prefix}weight"] = torch.from_numpy(
+                    np.array(child, np.float32).T.copy())
+            else:
+                state[f"{prefix}{name}"] = torch.from_numpy(np.array(child, np.float32))
 
     walk(tree.get("params", tree), "")
     return state
@@ -59,7 +63,7 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
         if kind == "weight":
             node["kernel"] = arr.T.copy()
         else:
-            node["bias"] = arr.copy()
+            node[kind] = arr.copy()
     return {"params": root}
 
 
@@ -130,32 +134,65 @@ def vec_state_to_numpy(vstate: VecState) -> dict[str, Any]:
     }
 
 
+def replay_from_numpy(ref_replay: Any, data_cls: type,
+                      device: str | torch.device = "cpu") -> ReplayState | PERState:
+    """A reference ``ReplayState`` or ``PERState`` of numpy arrays → the
+    port's; ``data_cls`` is the port's transition class."""
+    data = data_cls(*(_tensor(_field(ref_replay.data, f), device) for f in data_cls._fields))
+    common = dict(data=data, pos=int(ref_replay.pos), size=int(ref_replay.size))
+    if hasattr(ref_replay, "tree"):
+        return PERState(tree=_tensor(ref_replay.tree, device),
+                        max_priority=_tensor(ref_replay.max_priority, device), **common)
+    return ReplayState(**common)
+
+
+def replay_to_numpy(replay: ReplayState | PERState) -> dict[str, Any]:
+    out = {"data": state_to_numpy(replay.data), "pos": replay.pos, "size": replay.size}
+    if isinstance(replay, PERState):
+        out.update(tree=replay.tree.detach().cpu().numpy(),
+                   max_priority=replay.max_priority.detach().cpu().numpy())
+    return out
+
+
 def train_state_from_reference(trainer, ref_ts: Any, noise=None):
-    """A whole ``jax.device_get``-ed ``DQNTrainState`` or
-    ``OffPolicyTrainState`` → the port trainer's state: nets, targets and
-    Adam states, replay contents with ``pos`` and ``size``, the env batch
-    and the counters. The JAX key has no torch counterpart: ``noise``
-    replaces it (default: the fresh state's own ``Noise``)."""
+    """A whole ``jax.device_get``-ed ``DQNTrainState``,
+    ``OffPolicyTrainState`` or ``FamilyTrainState`` → the port trainer's
+    state: nets, targets and Adam states, replay contents (and the PER
+    sum-tree) with ``pos`` and ``size``, the env batch, the n-step window,
+    normalization statistics, β and the counters. The JAX key has no torch
+    counterpart: ``noise`` replaces it (default: the fresh state's own
+    ``Noise``); so do the per-env keys of a FlappyBird batch, which are
+    dropped."""
     ts = trainer.init(0)
     dev = trainer.device
-    replay = ReplayState(
-        data=type(ts.replay.data)(*(_tensor(x, dev) for x in ref_ts.replay.data)),
-        pos=int(ref_ts.replay.pos),
-        size=int(ref_ts.replay.size),
-    )
     common = dict(
-        replay=replay,
+        replay=replay_from_numpy(ref_ts.replay, type(ts.replay.data), dev),
         vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
         noise=ts.noise if noise is None else noise,
         env_steps=int(ref_ts.env_steps),
     )
-    if hasattr(ref_ts, "target_params"):  # DQN
+    if hasattr(ref_ts, "target_params"):  # DQN and the DQN family
         ts.params.load_state_dict(params_from_flax(ref_ts.params))
         ts.target_params.load_state_dict(params_from_flax(ref_ts.target_params))
         load_adam_state(ts.opt_state, ts.params, ref_ts.opt_state)
-        return ts._replace(**common,
-                           episodes=_tensor(ref_ts.episodes, dev),
-                           target_syncs=_tensor(ref_ts.target_syncs, dev))
+        common.update(episodes=_tensor(ref_ts.episodes, dev),
+                      target_syncs=_tensor(ref_ts.target_syncs, dev))
+        if not hasattr(ref_ts, "beta"):
+            return ts._replace(**common)
+        rms = type(ts.obs_rms)
+        window = ref_ts.window
+        scaler = ref_ts.reward_scaler
+        return ts._replace(
+            **common,
+            window=None if window is None else type(ts.window)(
+                *(_tensor(x, dev) for x in window)),
+            obs_rms=rms(*(_tensor(x, dev) for x in ref_ts.obs_rms)),
+            reward_scaler=type(ts.reward_scaler)(
+                rms=rms(*(_tensor(x, dev) for x in scaler.rms)),
+                ret=_tensor(scaler.ret, dev), gamma=float(np.asarray(scaler.gamma))),
+            learn_steps=int(ref_ts.learn_steps),
+            beta=_tensor(ref_ts.beta, dev),
+        )
     for name, net in ts.nets.items():
         if isinstance(net, nn.Module):
             net.load_state_dict(params_from_flax(ref_ts.nets[name]))

@@ -1,11 +1,33 @@
-"""Layers (counterpart of ``gymrl_tpu/nn/layers.py``). Only ``Dense`` so far."""
+"""Layers (counterpart of ``gymrl_tpu/nn/layers.py``): ``Dense``, ``PReLU``,
+``NoisyDense``, ``MLP`` and ``PSCN``.
+
+Parameter and submodule names are the flax ones (``layer_{i}``, ``act_{i}``,
+``mlp_{i}``, ``kernel_mu``, ``negative_slope``, ...), so
+weights map across by name (``interop.params_from_flax``). ``Dense`` keeps
+torch's ``[out, in]`` weight; ``NoisyDense`` keeps flax's ``[in, out]``
+kernels, which its per-row form multiplies as they are.
+
+NoisyNet noise is an argument, never drawn inside a layer: a noisy forward
+takes one ``(eps_in, eps_out)`` pair per noisy layer, in call order (the
+order of ``noisy_layers(module)``), already passed through
+``f(ε) = sign(ε)·√|ε|``, as ``Noise.noisy_act`` / ``Noise.noisy_update``
+hand them out. Composite modules take an iterator over the pairs and each
+noisy layer takes the next one; ``None`` gives the μ-only forward (eval,
+and the target network). A pair of vectors ``[in]``/``[out]`` is one draw
+shared by the batch; ``[rows, in]``/``[rows, out]`` is one per row.
+"""
 
 from __future__ import annotations
+
+import math
+from typing import Iterator, Sequence
 
 import torch
 from torch import nn
 
 from gymrl_tpu_torch.nn import initializers as gl_init
+
+NoiseIter = Iterator[tuple[torch.Tensor, torch.Tensor]] | None
 
 
 class Dense(nn.Linear):
@@ -27,3 +49,140 @@ class Dense(nn.Linear):
             self.kernel_init(self.weight, getattr(self, "_init_generator", None))
             if self.bias is not None:
                 self.bias.zero_()
+
+
+class PReLU(nn.Module):
+    """One shared slope, torch's default init 0.25:
+    ``where(x >= 0, x, a·x)``."""
+
+    def __init__(self):
+        super().__init__()
+        self.negative_slope = nn.Parameter(torch.tensor(0.25))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.negative_slope * x)
+
+
+class NoisyDense(nn.Module):
+    """Factorized-Gaussian NoisyNet linear layer (reference
+    utils/model.py:54-97). μ ~ U(±1/√in), σ₀ = 0.5/√fan.
+
+    ``eps=None``: ``x @ w_μ + b_μ``. A shared pair:
+    ``x @ (w_μ + w_σ ∘ (ε_in ⊗ ε_out)) + b_μ + b_σ ∘ ε_out``. A per-row pair:
+    ``x_i@w_μ + ((x_i∘ε_in_i)@w_σ)∘ε_out_i + b_μ + b_σ∘ε_out_i``, two plain
+    matmuls with no per-row weight."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        mu_range = 1.0 / math.sqrt(in_features)
+        self.kernel_mu = nn.Parameter(
+            torch.empty(in_features, out_features).uniform_(-mu_range, mu_range, generator=generator))
+        self.kernel_sigma = nn.Parameter(
+            torch.full((in_features, out_features), 0.5 / math.sqrt(in_features)))
+        self.bias_mu = nn.Parameter(
+            torch.empty(out_features).uniform_(-mu_range, mu_range, generator=generator))
+        self.bias_sigma = nn.Parameter(torch.full((out_features,), 0.5 / math.sqrt(out_features)))
+
+    def forward(self, x, eps: tuple[torch.Tensor, torch.Tensor] | None = None):
+        if eps is None:
+            return x @ self.kernel_mu + self.bias_mu
+        eps_in, eps_out = eps
+        if eps_in.dim() > 1:  # one draw per row
+            y = x @ self.kernel_mu
+            y = y + ((x * eps_in) @ self.kernel_sigma) * eps_out
+            return y + self.bias_mu + self.bias_sigma * eps_out
+        w = self.kernel_mu + self.kernel_sigma * (eps_in[:, None] * eps_out[None, :])
+        b = self.bias_mu + self.bias_sigma * eps_out
+        return x @ w + b
+
+
+def noisy_layers(module: nn.Module) -> list[tuple[int, int]]:
+    """``(in, out)`` of every ``NoisyDense`` under ``module``, in call order
+    (modules are registered in the order their forward calls them)."""
+    return [(m.in_features, m.out_features) for m in module.modules()
+            if isinstance(m, NoisyDense)]
+
+
+def linear_layer(in_features: int, out_features: int, noisy: bool,
+                 generator: torch.Generator | None = None) -> nn.Module:
+    """A ``NoisyDense`` or a kaiming-uniform ``Dense``."""
+    if noisy:
+        return NoisyDense(in_features, out_features, generator)
+    return Dense(in_features, out_features, generator=generator)
+
+
+def call(module: nn.Module, x, eps: NoiseIter):
+    """``module(x)`` with its share of the noise: none for a ``Dense`` or a
+    μ-only forward, the next pair for a ``NoisyDense``, the iterator for a
+    composite module."""
+    if eps is None or isinstance(module, Dense):
+        return module(x)
+    return module(x, next(eps) if isinstance(module, NoisyDense) else eps)
+
+
+class MLP(nn.Module):
+    """Linear + PReLU per layer (reference utils/model.py:26-52).
+    ``dims`` excludes the input width; ``linear="noisy"`` makes every layer
+    a ``NoisyDense``; the activation follows every layer but the last, and
+    the last too with ``last_act``. (The reference's other activations and
+    its LayerNorm option have no caller.)"""
+
+    def __init__(self, in_dim: int, dims: Sequence[int], last_act: bool = False,
+                 linear: str = "dense",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if not dims:
+            raise ValueError("dims can't be empty")
+        if linear not in ("dense", "noisy"):
+            raise ValueError(f"linear must be 'dense' or 'noisy', got {linear!r}")
+        self.n = len(dims)
+        self.last_act = last_act
+        for i, feat in enumerate(dims):
+            self.add_module(f"layer_{i}", linear_layer(in_dim, feat, linear == "noisy",
+                                                       generator))
+            if i < self.n - 1 or last_act:
+                self.add_module(f"act_{i}", PReLU())
+            in_dim = feat
+        self.out_dim = in_dim
+
+    def forward(self, x, eps: NoiseIter = None):
+        for i in range(self.n):
+            x = call(getattr(self, f"layer_{i}"), x, eps)
+            if i < self.n - 1 or self.last_act:
+                x = getattr(self, f"act_{i}")(x)
+        return x
+
+
+class PSCN(nn.Module):
+    """Parallel Split Concatenate Network (reference utils/model.py:256-286):
+    ``depth`` one-layer MLPs (with activation) of widths output_dim/2^i;
+    each non-final output's first half is emitted and its second half feeds
+    the next; the emitted parts and the last output are concatenated."""
+
+    def __init__(self, in_dim: int, output_dim: int, depth: int = 4, linear: str = "dense",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if depth < 1 or output_dim % 2 ** (depth - 1):
+            raise ValueError(f"output_dim {output_dim} must be divisible by "
+                             f"2^(depth-1) for depth {depth} >= 1")
+        self.depth = depth
+        out_dim = output_dim
+        for i in range(depth):
+            self.add_module(f"mlp_{i}", MLP(in_dim, [out_dim], last_act=True, linear=linear,
+                                            generator=generator))
+            in_dim = out_dim // 2
+            out_dim //= 2
+
+    def forward(self, x, eps: NoiseIter = None):
+        parts = []
+        for i in range(self.depth):
+            x = getattr(self, f"mlp_{i}")(x, eps)
+            if i < self.depth - 1:
+                half = x.shape[-1] // 2
+                parts.append(x[..., :half])
+                x = x[..., half:]
+            else:
+                parts.append(x)
+        return torch.cat(parts, dim=-1)

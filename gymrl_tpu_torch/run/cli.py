@@ -1,8 +1,9 @@
 """Workload entry points — ``python -m gymrl_tpu_torch.run.cli <workload> [--device D]``.
 
 Counterpart of ``gymrl_tpu/run/cli.py`` for the workloads the port has so
-far. ``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the
-CPU. Ctrl+C stops training gracefully and runs the final evaluation.
+far (12 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
+to run on the CPU. Ctrl+C stops training gracefully and runs the final
+evaluation.
 """
 
 from __future__ import annotations
@@ -27,6 +28,31 @@ def show_config(cfg, algo: str) -> None:
 def _dqn_cartpole(device: str):
     from gymrl_tpu_torch.algos.dqn import DQNConfig, DQNTrainer
     return DQNTrainer(DQNConfig(), device=device), "DQN", 495.0
+
+
+def _ddqn_per_cartpole(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, ddqn_per_config
+    return DQNFamilyTrainer(ddqn_per_config(), device=device), "DDQN_PER", 495.0
+
+
+def _ddqn_per_duel_cartpole(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, ddqn_per_duel_config
+    return DQNFamilyTrainer(ddqn_per_duel_config(), device=device), "DDQN_PER_DUEL", 495.0
+
+
+def _noisy_dqn_cartpole(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, noisy_dqn_config
+    return DQNFamilyTrainer(noisy_dqn_config(), device=device), "NoisyDQN", 495.0
+
+
+def _rainbow_dqn_cartpole(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, rainbow_config
+    return DQNFamilyTrainer(rainbow_config(), device=device), "RainbowDQN", 495.0
+
+
+def _noisy_dqn_flappybird(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, noisy_dqn_flappybird_config
+    return DQNFamilyTrainer(noisy_dqn_flappybird_config(), device=device), "NoisyDQN", None
 
 
 def _ppo_lunarlander(device: str):
@@ -62,6 +88,11 @@ def _ddpg_pendulum(device: str):
 
 WORKLOADS = {
     "dqn_cartpole": _dqn_cartpole,
+    "ddqn_per_cartpole": _ddqn_per_cartpole,
+    "ddqn_per_duel_cartpole": _ddqn_per_duel_cartpole,
+    "noisy_dqn_cartpole": _noisy_dqn_cartpole,
+    "rainbow_dqn_cartpole": _rainbow_dqn_cartpole,
+    "noisy_dqn_flappybird": _noisy_dqn_flappybird,
     "ppo_lunarlander": _ppo_lunarlander,
     "ppo_cartpole": _ppo_cartpole,
     "sac_pendulum": _sac_pendulum,

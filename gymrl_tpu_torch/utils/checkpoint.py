@@ -1,9 +1,11 @@
 """Checkpoint / resume (counterpart of ``gymrl_tpu/utils/checkpoint.py``).
 
 The whole train state — params, targets, optimizer moments and step
-counts, replay contents, env batch, normalization stats, the noise
-generator's state and the counters — is one ``torch.save`` file, so a restore puts training and eval-time
-normalization back exactly.
+counts, replay contents (with the PER sum-tree and max priority), the
+n-step window, env batch, normalization stats and reward scaler, PER β,
+the noise generator's state and the counters — is one ``torch.save``
+file, so a restore puts training and eval-time normalization back
+exactly.
 
 Restore is strict. The file must have exactly the structure of the example
 state it is restored into, with every tensor of the same shape and dtype;

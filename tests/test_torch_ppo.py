@@ -393,7 +393,7 @@ def test_cli_workload_trains_in_train_loop_on_cpu(tmp_path, monkeypatch, capsys)
     monkeypatch.chdir(tmp_path)
     assert cli.main([]) == 1
     usage = capsys.readouterr().out
-    assert "ppo_lunarlander" in usage and "rainbow_dqn_cartpole" not in usage
+    assert "ppo_lunarlander" in usage and "qlearning_frozenlake" not in usage
 
     trainer, algo, solve = cli.WORKLOADS["ppo_lunarlander"]("cpu")
     assert (algo, solve, trainer.device) == ("PPO", 200.0, torch.device("cpu"))
