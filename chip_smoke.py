@@ -2,8 +2,9 @@
 
     python chip_smoke.py
 
-Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, on the card and
-checks what comes out. Every phase raises on failure; the script exits 0
+Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
+ported family (off-policy, DQN, recurrent) on the card and checks what
+comes out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
   0. Device: a CUDA device must be present; prints ``nvidia-smi``'s name
@@ -83,6 +84,32 @@ only if all of them pass.
      and the n-step warm gate: rainbow's replay size and PER ``pos`` equal
      pushes from the n-th vector step on only (1472 after three
      iterations, where a push from the first step would give 1536).
+ 10. The recurrent pieces, card vs CPU, from inputs made on the CPU:
+     ``episode_buffer_pack`` of a [128, 32] rollout whose dones put up to
+     ~25 episodes in a column (R=8 rows each), with every field and both
+     dropped counts exact; the hoisted ``_seq_forward`` of the
+     ``ppo_rnn_flappybird`` (512) and ``ppo_rnn_lunarlander`` (256) nets on
+     [64, 128] rows (half from a carried hidden, half from zero): logits,
+     values and the last hidden on the card against the CPU and against
+     the card's own step-by-step forward, to ``SEQ_ATOL``; one phase-1
+     step of both recurrent-PPO presets and one auxiliary step of PPG per
+     clone target on the same packed whole-episode minibatch: the loss to
+     rtol 1e-5, params under phase 5's rules with phase 8's tie rule along
+     ``activation_edges`` (Adam's eps is 1e-5 and lr 1e-3 here).
+ 11. The recurrent CLI workloads, ppo_rnn_lunarlander, ppo_rnn_flappybird
+     and ppg_rnn_lunarlander, at full width (32 envs × 128 steps, 10
+     epochs of 4 minibatches of 64 episode rows), as in phase 6: one
+     warm-up iteration through ``TrainLoop``, two timed ones (env-steps/s,
+     rollout / next values + GAE / SGD / auxiliary phase times from CUDA
+     events, peak memory, the dropped-episode metrics), ``TrainLoop.test``
+     (five episodes, hidden carried) and a checkpoint restore. PPG starts at
+     six iterations' worth of env steps, so the first timed iteration
+     (index 7) runs the auxiliary phase and the second skips it. Checks the
+     env-step and obs-statistics counts, that the hidden is zero exactly in
+     the envs whose last step ended an episode, finite metrics, Adam's step
+     count (40 per iteration, 24 more on PPG's auxiliary iteration), the
+     auxiliary metrics nonzero exactly where the phase ran, that every
+     parameter moved and the state stayed on the card, and the restore.
   Last, the kernels: the port has no hand-written kernel (the JAX package
   has no Pallas kernel to port), so the kernel list is empty.
 
@@ -124,6 +151,9 @@ PER_ROUNDS = 10
 PER_TREE_RTOL = 1e-5
 PER_ROOT_RTOL = 1e-3  # the reference's own drift (module docstring)
 PER_WEIGHT_RTOL = 1e-5
+PACK_STEPS, PACK_ENVS, PACK_ROWS = 128, 32, 8  # the recurrent presets' rollout and R
+SEQ_ROWS = 64  # rows of a recurrent minibatch
+SEQ_ATOL = 1e-5  # the re-unroll's tolerance (module docstring)
 
 
 def log(msg: str) -> None:
@@ -910,11 +940,17 @@ def _watch_family_ties(net) -> tuple[list, list]:
     return records, handles
 
 
-def _family_exempt(net, records) -> dict[str, torch.Tensor]:
-    """Phase 5's rules for a family net: tiny gradients, and for a
-    pre-activation within RELU_TIE of a ReLU/PReLU kink, the unit's output
-    column and the consumers' input rows (``NoisyDense`` kernels are
-    ``[in, out]``, ``Dense`` weights ``[out, in]``)."""
+def _near_kink(out: torch.Tensor) -> torch.Tensor:
+    """Units with a pre-activation within RELU_TIE of the kink for some row."""
+    return (out.abs() < RELU_TIE).any(dim=0)
+
+
+def _family_exempt(net, records, tied=_near_kink) -> dict[str, torch.Tensor]:
+    """Phase 5's rules for a family net: tiny gradients, and for each unit
+    that ``tied`` flags in a recorded output (by default a pre-activation
+    within RELU_TIE of a ReLU/PReLU kink), the unit's output column and the
+    consumers' input rows (``NoisyDense`` kernels are ``[in, out]``,
+    ``Dense`` weights ``[out, in]``)."""
     from gymrl_tpu_torch.nn.layers import NoisyDense
 
     masks = {}
@@ -938,7 +974,7 @@ def _family_exempt(net, records) -> dict[str, torch.Tensor]:
 
     edges = net.activation_edges()
     for producer, out in records:
-        units = (out.abs() < RELU_TIE).any(dim=0).cpu()
+        units = tied(out).cpu()
         if not bool(units.any()):
             continue
         mark(producer, units.nonzero().flatten(), True)
@@ -1046,6 +1082,320 @@ def phase_family_updates(device: torch.device, names=FAMILY) -> list[dict]:
     return results
 
 
+# -- phase 10: the recurrent pieces, card vs CPU ---------------------------------------------
+RECURRENT = ("ppo_rnn_lunarlander", "ppo_rnn_flappybird", "ppg_rnn_lunarlander")
+
+
+def phase_pack(device: torch.device, steps: int = PACK_STEPS, envs: int = PACK_ENVS) -> dict:
+    """``episode_buffer_pack`` of a ``[T, B]`` rollout on the card and on the
+    CPU: done rates rise across the columns to ~25 episodes per column, so
+    the last columns overflow R=8. Everything must be equal."""
+    from gymrl_tpu_torch.replay.episode import episode_buffer_pack
+
+    gen = torch.Generator().manual_seed(21)
+    done = (torch.rand((steps, envs), generator=gen) < torch.linspace(0.0, 0.2, envs)).float()
+    data = {"obs": torch.randn((steps, envs, 8), generator=gen),
+            "action": torch.randint(0, 4, (steps, envs), generator=gen, dtype=torch.int32),
+            "h_pre": torch.randn((steps, envs, 64), generator=gen)}
+    cpu = episode_buffer_pack(data, done, PACK_ROWS)
+    dev = episode_buffer_pack({k: v.to(device) for k, v in data.items()}, done.to(device),
+                              PACK_ROWS)
+    fields = {**{f"data.{k}": (dev.data[k], cpu.data[k]) for k in data},
+              **{f: (getattr(dev, f), getattr(cpu, f))
+                 for f in ("active", "lengths", "dropped_steps", "dropped_episodes")}}
+    differ = [k for k, (d, c) in fields.items() if not torch.equal(d.cpu(), c)]
+    segments = 1 + done[:-1].sum(dim=0)
+    result = {"steps": steps, "envs": envs, "rows_per_env": PACK_ROWS,
+              "most_episodes_in_a_column": int(segments.max()),
+              "columns_over_rows": int((segments > PACK_ROWS).sum()),
+              "dropped_steps": int(cpu.dropped_steps),
+              "dropped_episodes": int(cpu.dropped_episodes), "fields_differ": differ}
+    log("phase 10 episode pack: " + json.dumps(result))
+    if differ:
+        raise AssertionError(f"the packed rollout differs on the card: {differ}")
+    if not result["columns_over_rows"] or not result["dropped_episodes"]:
+        raise AssertionError("the rollout should overflow some columns")
+    return result
+
+
+def phase_seq_forward(device: torch.device, names=RECURRENT[1::-1], rows: int = SEQ_ROWS,
+                      steps: int = PACK_STEPS) -> list[dict]:
+    """The hoisted re-unroll (``_seq_forward``: trunk and heads batched, the
+    GRU's hidden side a loop of ``steps``) of each preset's net on the card
+    against the CPU, and against the card's own step-by-step forward."""
+    from gymrl_tpu_torch.run import cli
+
+    results = []
+    for name in names:
+        trainers = {r: cli.WORKLOADS[name](d)[0] for r, d in (("cpu", "cpu"),
+                                                                 ("dev", str(device)))}
+        cpu_tr, dev_tr = trainers["cpu"], trainers["dev"]
+        nets = {r: tr.make_net(torch.Generator().manual_seed(0)).to(tr.device)
+                for r, tr in trainers.items()}
+        rnn = nets["cpu"].rnn_size
+        gen = torch.Generator().manual_seed(5)
+        obs = torch.randn((rows, steps, cpu_tr.obs_dim), generator=gen)
+        h0 = torch.tanh(torch.randn((rows, rnn), generator=gen))
+        h0[rows // 2:] = 0.0  # fresh episodes start from zero
+        out = {}
+        with torch.no_grad():
+            for r, tr in trainers.items():
+                args = (nets[r], h0.to(tr.device), obs.to(tr.device))
+                out[r] = (*tr._seq_forward(*args), nets[r].unroll(*args[1:])[:, -1, -rnn:])
+            h, step_logits, step_values = h0.to(device), [], []
+            for t in range(steps):
+                h, lg, v = dev_tr._apply_cell(nets["dev"], h, obs[:, t].to(device))
+                step_logits.append(lg)
+                step_values.append(v)
+        stepwise = (torch.stack(step_logits, 1), torch.stack(step_values, 1), h)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+        def err(a, b):
+            return [float((x.cpu().double() - y.cpu().double()).abs().max()) for x, y in zip(a, b)]
+
+        names3 = ("logits", "values", "last_hidden")
+        result = {"workload": name, "rows": rows, "steps": steps, "atol": SEQ_ATOL,
+                  "card_vs_cpu": dict(zip(names3, err(out["dev"], out["cpu"]))),
+                  "hoisted_vs_stepwise": dict(zip(names3, err(out["dev"], stepwise)))}
+        log("phase 10 seq forward: " + json.dumps(result))
+        worst = max(*result["card_vs_cpu"].values(), *result["hoisted_vs_stepwise"].values())
+        if not worst <= SEQ_ATOL:
+            raise AssertionError(f"{name}: sequence forward differs by {worst}")
+        results.append(result)
+    return results
+
+
+def _rnn_minibatch(trainer, net, rows: int, gen: torch.Generator) -> dict:
+    """A packed-row minibatch as whole-episode BPTT makes it: the first row
+    of each column group a continuation (carried hidden), the others fresh
+    (zero); each row active for a prefix, zero-padded after it; behaviour
+    log-probs near the net's own, advantages of both signs, an anchor
+    distribution near the current one."""
+    cfg = trainer.cfg
+    steps, rnn = cfg.rollout_steps, net.rnn_size
+    obs = torch.randn((rows, steps, trainer.obs_dim), generator=gen)
+    h0 = torch.tanh(torch.randn((rows, rnn), generator=gen))
+    h0[torch.arange(rows) % cfg.episode_rows_per_env != 0] = 0.0
+    lengths = torch.randint(1, steps + 1, (rows,), generator=gen)
+    mask = (torch.arange(steps)[None, :] < lengths[:, None]).float()
+    obs = obs * mask[..., None]
+    with torch.no_grad():
+        logits, _ = trainer._seq_forward(net, h0, obs)
+    logp_all = torch.log_softmax(logits, -1)
+    action = torch.randint(0, trainer.n_actions, (rows, steps), generator=gen, dtype=torch.int32)
+    taken = logp_all.gather(-1, action.long()[..., None])[..., 0]
+    return {
+        "obs": obs, "h0": h0, "mask": mask, "action": action,
+        "logp": taken + 0.3 * torch.randn((rows, steps), generator=gen),
+        "adv": 2.0 * torch.randn((rows, steps), generator=gen),
+        "v_target": 3.0 * torch.randn((rows, steps), generator=gen),
+        "anchor_logp_all": torch.log_softmax(
+            logits + 0.5 * torch.randn(logits.shape, generator=gen), -1),
+    }
+
+
+def phase_rnn_updates(device: torch.device, rows: int = SEQ_ROWS, overrides=None) -> list[dict]:
+    """One phase-1 step of recurrent PPO (both presets) and one auxiliary
+    step of PPG in each clone target, on the card and on the CPU from the
+    same params and packed minibatch. Losses to rtol 1e-5; params under
+    phase 5's rules, the tie rule along ``activation_edges``."""
+    import dataclasses
+
+    from gymrl_tpu_torch.algos.base import pack_fields, unpack_fields
+    from gymrl_tpu_torch.run import cli
+
+    cases = (("ppo_rnn_lunarlander", None), ("ppo_rnn_flappybird", None),
+             ("ppg_rnn_lunarlander", "current"), ("ppg_rnn_lunarlander", "behavior"))
+    results = []
+    for name, clone in cases:
+        trainers = {}
+        for role, d in (("cpu", "cpu"), ("dev", str(device))):
+            tr = cli.WORKLOADS[name](d)[0]
+            cfg = dataclasses.replace(tr.cfg, **(overrides or {}),
+                                      **({"clone_target": clone} if clone else {}))
+            trainers[role] = type(tr)(cfg, device=d)
+        cpu_tr = trainers["cpu"]
+        states = {role: tr.init(0) for role, tr in trainers.items()}
+        cpu_ts, dev_ts = states["cpu"], states["dev"]
+        mb = _rnn_minibatch(cpu_tr, cpu_ts.params, rows, torch.Generator().manual_seed(9))
+        if clone != "current":
+            mb.pop("anchor_logp_all")
+        packed, spec = pack_fields(mb)
+        loss_name = "_aux_loss" if clone else "_loss"
+        losses, metrics, records = {}, {}, {}
+        for role, tr in trainers.items():
+            ts, rows_d = states[role], packed.to(tr.device)
+            loss_fn = getattr(tr, loss_name)
+            with torch.no_grad():
+                losses[role] = float(loss_fn(ts.params, unpack_fields(rows_d, spec))[0])
+            records[role], handles = _watch_family_ties(ts.params)
+            step_metrics = tr._grad_step(ts, rows_d, spec, loss_fn)
+            metrics[role] = {k: float(v) for k, v in step_metrics.items()}
+            for h in handles:
+                h.remove()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        # A minibatch of 8192 steps puts some pre-activation within RELU_TIE of
+        # a kink in almost every unit, so here the tie rule marks only the
+        # units where the two devices put some step on different sides.
+        pairs = [(name_c, (a, b)) for (name_c, a), (_, b) in zip(records["cpu"], records["dev"])]
+        exempt = _family_exempt(cpu_ts.params, pairs,
+                                lambda ab: ((ab[0] >= 0) != (ab[1].cpu() >= 0)).any(dim=0))
+        want = dict(cpu_ts.params.named_parameters())
+        got = dict(dev_ts.params.named_parameters())
+        lr = cpu_tr.cfg.lr
+        worst = worst_exempt = 0.0
+        n_exempt = 0
+        for k, w in want.items():
+            e = (got[k].detach().cpu().double() - w.detach().double()).abs()
+            ok = (e <= PARAM_ATOL) | (exempt[k] & (e <= 2.0 * lr))
+            if not bool(ok.all()):
+                raise AssertionError(f"{name} {clone}: {k} differs by {float(e.max())} on the card")
+            if bool((~exempt[k]).any()):
+                worst = max(worst, float(e[~exempt[k]].max()))
+            if bool(exempt[k].any()):
+                worst_exempt = max(worst_exempt, float(e[exempt[k]].max()))
+            n_exempt += int(exempt[k].sum())
+        loss_rel = abs(losses["dev"] - losses["cpu"]) / abs(losses["cpu"])
+        result = {"workload": name, "step": f"aux ({clone})" if clone else "phase 1",
+                  "rows": rows, "steps": cpu_tr.cfg.rollout_steps, "loss_cpu": losses["cpu"],
+                  "loss_rel_err": loss_rel,
+                  "metric_abs_err": {k: abs(metrics["dev"][k] - v)
+                                     for k, v in metrics["cpu"].items()},
+                  "param_max_abs_err": worst, "exempt_entries": n_exempt,
+                  "exempt_max_abs_err": worst_exempt}
+        log("phase 10 rnn update: " + json.dumps(result))
+        if loss_rel > UPDATE_RTOL:
+            raise AssertionError(f"{name} {clone}: loss {losses['dev']} on the card, "
+                                 f"{losses['cpu']} on the CPU")
+        results.append(result)
+    return results
+
+
+# -- phase 11: the recurrent workloads on the card ---------------------------------------------
+def phase_rnn_workloads(device: torch.device, names=RECURRENT,
+                        timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5,
+                        overrides=None) -> list[dict]:
+    """Each recurrent CLI workload through TrainLoop: a warm-up iteration,
+    ``timed_iters`` timed ones, the test, a checkpoint restore. PPG starts at
+    six iterations' worth of env steps, so its first timed iteration (index
+    7) runs the auxiliary phase and the next skips it."""
+    import dataclasses
+
+    from gymrl_tpu_torch.algos.ppg import PPGTrainer
+    from gymrl_tpu_torch.run import cli
+    from gymrl_tpu_torch.run.loop import TrainLoop
+    from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cuda = device.type == "cuda"
+    results = []
+    for name in names:
+        trainer, algo, solve = cli.WORKLOADS[name](str(device))
+        if overrides:
+            cfg = dataclasses.replace(trainer.cfg, **{k: v for k, v in overrides.items()
+                                                      if hasattr(trainer.cfg, k)})
+            trainer = type(trainer)(cfg, device=device)
+        cfg = trainer.cfg
+        per_iter = cfg.batch_total
+        ppg = isinstance(trainer, PPGTrainer)
+        ts0 = trainer.init(0)
+        if ppg:
+            ts0 = ts0._replace(env_steps=6 * per_iter)
+        start = ts0.env_steps
+        initial = {n: v.detach().clone() for n, v in ts0.params.state_dict().items()}
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)  # the loop saves to ./checkpoints
+            try:
+                loop = TrainLoop(trainer, algo, log_metrics=False, log_every=1, save_every=10 ** 12)
+            finally:
+                os.chdir(cwd)
+            warm_outs = []
+
+            def capture(ts, timer=None, _train_iter=trainer.train_iter):
+                ts, out = _train_iter(ts, timer)
+                warm_outs.append(out)
+                return ts, out
+
+            trainer.train_iter = capture  # the warm-up's metrics, read below
+            t0 = time.perf_counter()
+            ts, _ = loop.train(start + per_iter, solve_threshold=solve, ts=ts0)  # warm-up
+            del trainer.train_iter
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            warm_s = time.perf_counter() - t0
+            clock = PhaseClock(device)
+            walls, phases, outs, aux_ran = [], [], [], []
+            for _ in range(timed_iters):
+                aux_ran.append(ppg and trainer.aux_runs(ts.env_steps))
+                t0 = time.perf_counter()
+                clock.start()
+                ts, out = trainer.train_iter(ts, timer=clock.mark)
+                if cuda:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                phases.append(clock.phase_ms())
+                outs.append({k: float(v) for k, v in out.metrics.items()})
+            peak = torch.cuda.max_memory_allocated(device) if cuda else None
+            t0 = time.perf_counter()
+            mean_reward = loop.test(ts, episodes=episodes)
+            test_s = time.perf_counter() - t0
+            path = save_checkpoint(loop.ckpt_path, ts)
+            restored = restore_checkpoint(path, trainer.init(1))
+
+        iters = timed_iters + 1
+        last_done = out.ep_done[-1]
+        result = {
+            "workload": name, "env_steps": ts.env_steps, "warmup_iter_s": warm_s,
+            # a fresh batch's first scaled rewards are huge (the scaler's
+            # first std is 1e-8, as in the reference): its value loss shows it
+            "warmup_metrics": {k: float(v) for k, v in warm_outs[0].metrics.items()},
+            "env_steps_per_s": timed_iters * per_iter / sum(walls),
+            "iter_wall_ms": [w * 1e3 for w in walls],
+            "phase_ms": {p: [ph[p] for ph in phases] for p in phases[0]},
+            "peak_memory_bytes": peak, "metrics": outs, "aux_ran": aux_ran,
+            "test_episodes": episodes, "test_mean_reward": mean_reward, "test_s": test_s,
+            "envs_done_at_last_step": int(last_done.sum()),
+        }
+        # counts, hidden, metrics, moves, restore
+        if ts.env_steps != start + iters * per_iter:
+            raise AssertionError(f"{name}: env_steps {ts.env_steps}")
+        if float(ts.obs_rms.count) != iters * per_iter:
+            raise AssertionError(f"{name}: obs_rms count {float(ts.obs_rms.count)}")
+        hidden = ts.hidden.abs().sum(dim=-1)
+        if bool((hidden[last_done] != 0).any()) or not bool((hidden[~last_done] > 0).all()):
+            raise AssertionError(f"{name}: the hidden is not zero exactly at the last dones")
+        if not all(math.isfinite(v) for m in outs for v in m.values()) \
+                or not math.isfinite(mean_reward):
+            raise AssertionError(f"{name}: non-finite metrics {outs} / test {mean_reward}")
+        grad_steps = cfg.num_epochs * cfg.num_minibatches
+        aux_steps = cfg.aux_epochs * cfg.num_minibatches if ppg else 0
+        if ppg and aux_ran != [i == 0 for i in range(timed_iters)]:
+            raise AssertionError(f"{name}: the auxiliary phase ran at {aux_ran}")
+        for m, ran in zip(outs, aux_ran):
+            if ppg and (m["aux_value_loss"] != 0.0) != ran:
+                raise AssertionError(f"{name}: aux metrics {m} with the phase run={ran}")
+        want_steps = iters * grad_steps + aux_steps * sum(aux_ran)
+        if _adam_counts(ts.opt_state) != {want_steps}:
+            raise AssertionError(f"{name}: Adam counts {_adam_counts(ts.opt_state)} != {want_steps}")
+        state = ts.params.state_dict()
+        if not all(v.device.type == device.type for v in state.values()) \
+                or ts.hidden.device.type != device.type:
+            raise AssertionError(f"{name}: the state left the device")
+        moved = [n for n, v in initial.items() if not torch.equal(state[n], v)]
+        if len(moved) != len(initial):
+            raise AssertionError(f"{name}: {sorted(set(initial) - set(moved))} did not move")
+        got, want = _state_tensors(restored), _state_tensors(ts)
+        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+            raise AssertionError(f"{name}: the restored state differs from the trained one")
+        result.update(adam_steps=want_steps, checkpoint_restored=True)
+        log("phase 11 recurrent workload: " + json.dumps(result))
+        results.append(result)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1069,6 +1419,10 @@ def main() -> int:
     phase_per(device)
     phase_family_updates(device)
     phase_workloads(device, FAMILY, label="phase 9 family workload")
+    phase_pack(device)
+    phase_seq_forward(device)
+    phase_rnn_updates(device)
+    phase_rnn_workloads(device)
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

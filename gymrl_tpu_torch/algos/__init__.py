@@ -20,7 +20,15 @@ from gymrl_tpu_torch.algos.dqn_variants import (
     noisy_dqn_flappybird_config,
     rainbow_config,
 )
+from gymrl_tpu_torch.algos.ppg import PPGConfig, PPGTrainer, ppg_rnn_lunarlander_config
 from gymrl_tpu_torch.algos.ppo import ActorCritic, PPOConfig, PPOTrainer, PPOTrainState
+from gymrl_tpu_torch.algos.ppo_rnn import (
+    PPORNNConfig,
+    PPORNNTrainer,
+    RNNTrainState,
+    ppo_rnn_flappybird_config,
+    ppo_rnn_lunarlander_config,
+)
 
 __all__ = [
     "IterOut", "Trainer", "masked_mean",
@@ -28,6 +36,8 @@ __all__ = [
     "DQNFamilyConfig", "DQNFamilyTrainer", "ddqn_per_config", "ddqn_per_duel_config",
     "noisy_dqn_config", "noisy_dqn_flappybird_config", "rainbow_config",
     "ActorCritic", "PPOConfig", "PPOTrainer", "PPOTrainState",
+    "PPORNNConfig", "PPORNNTrainer", "RNNTrainState", "ppo_rnn_lunarlander_config",
+    "ppo_rnn_flappybird_config", "PPGConfig", "PPGTrainer", "ppg_rnn_lunarlander_config",
     "OffPolicyConfig", "DDPGTrainer", "TD3Trainer", "SACTrainer", "DiscreteSACTrainer",
     "ddpg_config", "td3_config", "sac_config", "sac_discrete_config",
 ]

@@ -41,6 +41,29 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch
     return (x * mask).sum() / (mask.sum() + eps)
 
 
+def pack_fields(data: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
+    """A dict of ``[n, ...]`` tensors as ONE ``[n, F]`` float32 matrix and
+    its layout, keys in sorted order, so an epoch's shuffle is one row
+    gather. Integer fields ride through float32 exactly for |v| < 2^24
+    (actions and indices here); ``unpack_fields`` restores the dtypes."""
+    spec, cols, off = {}, [], 0
+    for k in sorted(data):
+        x = data[k]
+        if x.dtype not in (torch.float32, torch.int32, torch.bool):
+            raise TypeError(f"{k}: {x.dtype} does not ride exactly through float32")
+        flat = x.reshape(x.shape[0], -1)
+        spec[k] = (off, off + flat.shape[1], tuple(x.shape[1:]), x.dtype)
+        off += flat.shape[1]
+        cols.append(flat.float())
+    return torch.cat(cols, dim=1), spec
+
+
+def unpack_fields(rows: torch.Tensor, spec: dict) -> dict[str, torch.Tensor]:
+    """Inverse of ``pack_fields`` for an ``[m, F]`` block of packed rows."""
+    return {k: rows[:, a:b].reshape((rows.shape[0],) + shape).to(dtype)
+            for k, (a, b, shape, dtype) in spec.items()}
+
+
 def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
     """optax ``clip_by_global_norm``, in place: ``g · max/‖g‖`` only when
     ``‖g‖ ≥ max``. (``torch.nn.utils.clip_grad_norm_`` divides by

@@ -52,7 +52,9 @@ from gymrl_tpu_torch.core.normalization import (
 from gymrl_tpu_torch.core.schedules import exp_epsilon_decay, per_beta_anneal, ref_lr_decay
 from gymrl_tpu_torch.envs.registry import make_vec
 from gymrl_tpu_torch.envs.rollout import VecState
-from gymrl_tpu_torch.nn.layers import MLP, PSCN, call, linear_layer, noisy_layers
+from gymrl_tpu_torch.nn.layers import (
+    MLP, PSCN, call, linear_layer, mlp_activation_edges, noisy_layers, pscn_activation_edges,
+)
 from gymrl_tpu_torch.replay.per import (
     PERState, per_init, per_push_batch, per_sample, per_update_priorities,
 )
@@ -183,38 +185,20 @@ class QNet(nn.Module):
         heads = ([first(self.value, "value"), first(self.advantage, "advantage")]
                  if self.dueling else ["head"])
         edges = []
-
-        def width(name):
-            return self.get_submodule(name).out_features
-
-        def mlp(prefix, module, after):
-            for i in range(module.n):
-                name = f"{prefix}.layer_{i}"
-                nxt = [f"{prefix}.layer_{i + 1}"] if i < module.n - 1 else (
-                    after if module.last_act else [])
-                edges.extend((name, c, 0, width(name), 0) for c in nxt)
-
         if self.trunk == "pscn":
             after_pscn = ["trunk_mlp.layer_0"] if hasattr(self, "trunk_mlp") else heads
-            emitted = 0
-            for i in range(self.pscn.depth):
-                name = f"pscn.mlp_{i}.layer_0"
-                w = width(name)
-                half = w // 2 if i < self.pscn.depth - 1 else w
-                edges.extend((name, c, 0, half, emitted) for c in after_pscn)
-                if half < w:
-                    edges.append((name, f"pscn.mlp_{i + 1}.layer_0", half, w, -half))
-                emitted += half
+            edges += pscn_activation_edges("pscn", self.pscn, after_pscn)
             if hasattr(self, "trunk_mlp"):
-                mlp("trunk_mlp", self.trunk_mlp, heads)
+                edges += mlp_activation_edges("trunk_mlp", self.trunk_mlp, heads)
         else:
             for i in range(self.trunk_layers):
                 name = f"fc{i + 1}"
                 nxt = [f"fc{i + 2}"] if i < self.trunk_layers - 1 else heads
-                edges.extend((name, c, 0, width(name), 0) for c in nxt)
+                width = self.get_submodule(name).out_features
+                edges.extend((name, c, 0, width, 0) for c in nxt)
         for name in ("value", "advantage"):
             if isinstance(getattr(self, name, None), MLP):
-                mlp(name, getattr(self, name), [])
+                edges += mlp_activation_edges(name, getattr(self, name))
         return edges
 
     def forward(self, x, eps=None):

@@ -4,11 +4,12 @@ The JAX trainers thread a key through their train state and split it for
 every draw. Here one ``Noise`` object owns a ``torch.Generator`` on the
 trainer's device and hands out every draw the main path makes:
 
-  * the Gumbel noise of categorical action sampling (``gumbel``: PPO and
-    discrete SAC),
+  * the Gumbel noise of categorical action sampling (``gumbel``: PPO, the
+    recurrent family and discrete SAC),
   * the environment's draws for a batched reset or step (``env_reset`` /
     ``env_step``, which ask the env what it needs),
-  * the per-epoch minibatch permutations (``permutations``),
+  * the per-epoch minibatch permutations (``permutations``; PPG's two
+    phases' together, ``ppg_permutations``),
   * DQN's ε-greedy draws (``explore``),
   * replay indices (``replay_indices``) and PER's stratified uniforms
     (``per_uniforms``),
@@ -64,6 +65,14 @@ class Noise:
             torch.randperm(n, generator=self.generator, device=self.device)
             for _ in range(count)
         ])
+
+    def ppg_permutations(self, count1: int, count2: int,
+                         n: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """PPG's two sets of epoch permutations, ``[count1, n]`` for the
+        policy phase and ``[count2, n]`` for the auxiliary phase, drawn
+        together every iteration (the reference splits its key three ways
+        whether or not the auxiliary phase runs)."""
+        return self.permutations(count1, n), self.permutations(count2, n)
 
     def explore(self, num: int, n_actions: int) -> tuple[torch.Tensor, torch.Tensor]:
         """ε-greedy draws: ``U[0, 1)[num]`` to compare with ε, and random

@@ -3,7 +3,10 @@
 Numpy in, numpy or torch out; nothing here imports JAX. Flax ``Dense``
 kernels are ``[in, out]`` and torch weights ``[out, in]``, so
 ``weight = kernel.T``; module names map one to one, nested modules by
-dotted path (``{"q1": {"fc1": ...}}`` → ``q1.fc1.weight``).
+dotted path (``{"q1": {"fc1": ...}}`` → ``q1.fc1.weight``). A vector
+raveled by ``jax.flatten_util.ravel_pytree`` (the JAX package's flat
+optimizer keeps its Adam moments so) is split with ``unravel_flax``, which
+follows the same leaf order: a dict's keys sorted at every level.
 """
 
 from __future__ import annotations
@@ -67,6 +70,44 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
     return {"params": root}
 
 
+def _flax_leaves(tree: Mapping, prefix: tuple = ()) -> list[tuple[tuple, np.ndarray]]:
+    """``(path, leaf)`` in ``jax.tree_util``'s order: a dict's keys sorted at
+    every level."""
+    out = []
+    for name in sorted(tree):
+        child = tree[name]
+        if isinstance(child, Mapping):
+            out.extend(_flax_leaves(child, prefix + (name,)))
+        else:
+            out.append((prefix + (name,), np.asarray(child)))
+    return out
+
+
+def ravel_flax(tree: Mapping) -> np.ndarray:
+    """``jax.flatten_util.ravel_pytree``'s vector of a params tree: every
+    leaf raveled in C order, concatenated in ``jax.tree_util`` order."""
+    return np.concatenate([leaf.ravel() for _, leaf in _flax_leaves(tree)])
+
+
+def unravel_flax(vector, like: Mapping) -> dict:
+    """Inverse of ``ravel_flax``: ``vector`` split into a tree shaped as
+    ``like``."""
+    vector = np.asarray(vector)
+    leaves = _flax_leaves(like)
+    total = sum(leaf.size for _, leaf in leaves)
+    if total != vector.size:
+        raise ValueError(f"a vector of {vector.size} entries for a tree of {total}")
+    root: dict[str, Any] = {}
+    off = 0
+    for path, leaf in leaves:
+        node = root
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = vector[off:off + leaf.size].reshape(leaf.shape)
+        off += leaf.size
+    return root
+
+
 def _scale_by_adam_state(opt_state: Any):
     """The ``ScaleByAdamState`` (``count``, ``mu``, ``nu``) inside an optax
     state (``optax.adam`` is a chain: a tuple of states)."""
@@ -84,13 +125,20 @@ def load_adam_state(opt: torch.optim.Adam, params: nn.Module | torch.Tensor,
                     opt_state: Any) -> None:
     """Put an optax Adam state (numpy leaves) into the torch Adam ``opt`` over
     ``params`` (a module, or one parameter such as a 0-dim ``log_alpha``):
-    ``count`` → ``step``, ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``."""
+    ``count`` → ``step``, ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``.
+    For a module the moments are a params tree, or one raveled vector (the
+    JAX package's ``flat_optimizer``), split in ``ravel_pytree``'s leaf
+    order of the module's flax tree."""
     adam_state = _scale_by_adam_state(opt_state)
     if adam_state is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
     step = torch.tensor(float(np.asarray(adam_state.count)))
     if isinstance(params, nn.Module):
-        mu, nu = params_from_flax(adam_state.mu), params_from_flax(adam_state.nu)
+        mu, nu = adam_state.mu, adam_state.nu
+        if not isinstance(mu, Mapping):  # one raveled vector
+            like = params_to_flax(dict(params.named_parameters()))
+            mu, nu = unravel_flax(mu, like), unravel_flax(nu, like)
+        mu, nu = params_from_flax(mu), params_from_flax(nu)
         named = list(params.named_parameters())
         moments = [(p, mu[name], nu[name]) for name, p in named]
     else:
@@ -101,6 +149,19 @@ def load_adam_state(opt: torch.optim.Adam, params: nn.Module | torch.Tensor,
             "exp_avg": m.to(device=p.device, dtype=p.dtype).reshape(p.shape).clone(),
             "exp_avg_sq": v.to(device=p.device, dtype=p.dtype).reshape(p.shape).clone(),
         }
+
+
+def adam_state_to_flax(opt: torch.optim.Adam, net: nn.Module, flat: bool):
+    """The torch Adam ``opt`` over ``net`` as optax's ``(count, mu, nu)``:
+    numpy params trees, or with ``flat`` raveled vectors in
+    ``ravel_pytree``'s order (the inverse of ``load_adam_state``)."""
+    named = list(net.named_parameters())
+    mu = params_to_flax({n: opt.state[p]["exp_avg"] for n, p in named})
+    nu = params_to_flax({n: opt.state[p]["exp_avg_sq"] for n, p in named})
+    count = np.int32(int(opt.state[named[0][1]]["step"]))
+    if flat:
+        mu, nu = ravel_flax(mu), ravel_flax(nu)
+    return count, mu, nu
 
 
 def state_from_numpy(state: Any, cls: type, device: str | torch.device = "cpu"):
@@ -154,17 +215,40 @@ def replay_to_numpy(replay: ReplayState | PERState) -> dict[str, Any]:
     return out
 
 
+def _norm_stats(ts, ref_ts, dev) -> dict:
+    """The obs statistics and reward scaler of ``ref_ts`` as the port's."""
+    rms = type(ts.obs_rms)
+    scaler = ref_ts.reward_scaler
+    return dict(
+        obs_rms=rms(*(_tensor(x, dev) for x in ref_ts.obs_rms)),
+        reward_scaler=type(ts.reward_scaler)(
+            rms=rms(*(_tensor(x, dev) for x in scaler.rms)),
+            ret=_tensor(scaler.ret, dev), gamma=float(np.asarray(scaler.gamma))),
+    )
+
+
 def train_state_from_reference(trainer, ref_ts: Any, noise=None):
     """A whole ``jax.device_get``-ed ``DQNTrainState``,
-    ``OffPolicyTrainState`` or ``FamilyTrainState`` → the port trainer's
-    state: nets, targets and Adam states, replay contents (and the PER
-    sum-tree) with ``pos`` and ``size``, the env batch, the n-step window,
+    ``OffPolicyTrainState``, ``FamilyTrainState`` or ``RNNTrainState`` → the
+    port trainer's state: nets, targets and Adam states (a raveled flat
+    optimizer's too), replay contents (and the PER sum-tree) with ``pos``
+    and ``size``, the env batch, the n-step window, the GRU hidden,
     normalization statistics, β and the counters. The JAX key has no torch
     counterpart: ``noise`` replaces it (default: the fresh state's own
     ``Noise``); so do the per-env keys of a FlappyBird batch, which are
     dropped."""
     ts = trainer.init(0)
     dev = trainer.device
+    if hasattr(ref_ts, "hidden"):  # the recurrent family
+        ts.params.load_state_dict(params_from_flax(ref_ts.params))
+        load_adam_state(ts.opt_state, ts.params, ref_ts.opt_state)
+        return ts._replace(
+            vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
+            hidden=_tensor(ref_ts.hidden, dev),
+            **_norm_stats(ts, ref_ts, dev),
+            noise=ts.noise if noise is None else noise,
+            env_steps=int(ref_ts.env_steps),
+        )
     common = dict(
         replay=replay_from_numpy(ref_ts.replay, type(ts.replay.data), dev),
         vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
@@ -179,17 +263,12 @@ def train_state_from_reference(trainer, ref_ts: Any, noise=None):
                       target_syncs=_tensor(ref_ts.target_syncs, dev))
         if not hasattr(ref_ts, "beta"):
             return ts._replace(**common)
-        rms = type(ts.obs_rms)
         window = ref_ts.window
-        scaler = ref_ts.reward_scaler
         return ts._replace(
             **common,
             window=None if window is None else type(ts.window)(
                 *(_tensor(x, dev) for x in window)),
-            obs_rms=rms(*(_tensor(x, dev) for x in ref_ts.obs_rms)),
-            reward_scaler=type(ts.reward_scaler)(
-                rms=rms(*(_tensor(x, dev) for x in scaler.rms)),
-                ret=_tensor(scaler.ret, dev), gamma=float(np.asarray(scaler.gamma))),
+            **_norm_stats(ts, ref_ts, dev),
             learn_steps=int(ref_ts.learn_steps),
             beta=_tensor(ref_ts.beta, dev),
         )

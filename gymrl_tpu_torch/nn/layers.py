@@ -15,6 +15,10 @@ hand them out. Composite modules take an iterator over the pairs and each
 noisy layer takes the next one; ``None`` gives the μ-only forward (eval,
 and the target network). A pair of vectors ``[in]``/``[out]`` is one draw
 shared by the batch; ``[rows, in]``/``[rows, out]`` is one per row.
+
+``mlp_activation_edges`` / ``pscn_activation_edges`` state where an MLP's
+or a PSCN's PReLU kinks sit and which layers read those units; a net's
+``activation_edges`` is built from them.
 """
 
 from __future__ import annotations
@@ -186,3 +190,37 @@ class PSCN(nn.Module):
             else:
                 parts.append(x)
         return torch.cat(parts, dim=-1)
+
+
+Edge = tuple[str, str, int, int, int]
+
+
+def mlp_activation_edges(prefix: str, mlp: MLP, after: Sequence[str] = ()) -> list[Edge]:
+    """``activation_edges`` of an ``MLP`` named ``prefix``: each layer's
+    units pass a PReLU into the next layer, and the last layer's (with
+    ``last_act``) into each layer of ``after``."""
+    edges = []
+    for i in range(mlp.n):
+        name = f"{prefix}.layer_{i}"
+        nxt = [f"{prefix}.layer_{i + 1}"] if i < mlp.n - 1 else (list(after) if mlp.last_act
+                                                                 else [])
+        width = getattr(mlp, f"layer_{i}").out_features
+        edges.extend((name, c, 0, width, 0) for c in nxt)
+    return edges
+
+
+def pscn_activation_edges(prefix: str, pscn: PSCN, after: Sequence[str]) -> list[Edge]:
+    """``activation_edges`` of a ``PSCN`` named ``prefix`` whose output
+    feeds each layer of ``after``: block i's emitted half enters them at
+    the offset of what the earlier blocks emitted, its other half the next
+    block."""
+    edges, emitted = [], 0
+    for i in range(pscn.depth):
+        name = f"{prefix}.mlp_{i}.layer_0"
+        width = getattr(pscn, f"mlp_{i}").layer_0.out_features
+        half = width // 2 if i < pscn.depth - 1 else width
+        edges.extend((name, c, 0, half, emitted) for c in after)
+        if half < width:
+            edges.append((name, f"{prefix}.mlp_{i + 1}.layer_0", half, width, -half))
+        emitted += half
+    return edges

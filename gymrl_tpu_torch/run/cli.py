@@ -1,7 +1,7 @@
 """Workload entry points — ``python -m gymrl_tpu_torch.run.cli <workload> [--device D]``.
 
 Counterpart of ``gymrl_tpu/run/cli.py`` for the workloads the port has so
-far (12 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
+far (15 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
 to run on the CPU. Ctrl+C stops training gracefully and runs the final
 evaluation.
 """
@@ -60,6 +60,21 @@ def _ppo_lunarlander(device: str):
     return PPOTrainer(PPOConfig(), device=device), "PPO", 200.0
 
 
+def _ppo_rnn_lunarlander(device: str):
+    from gymrl_tpu_torch.algos.ppo_rnn import PPORNNTrainer, ppo_rnn_lunarlander_config
+    return PPORNNTrainer(ppo_rnn_lunarlander_config(), device=device), "PPO_RNN", 200.0
+
+
+def _ppo_rnn_flappybird(device: str):
+    from gymrl_tpu_torch.algos.ppo_rnn import PPORNNTrainer, ppo_rnn_flappybird_config
+    return PPORNNTrainer(ppo_rnn_flappybird_config(), device=device), "PPO_RNN", None
+
+
+def _ppg_rnn_lunarlander(device: str):
+    from gymrl_tpu_torch.algos.ppg import PPGTrainer, ppg_rnn_lunarlander_config
+    return PPGTrainer(ppg_rnn_lunarlander_config(), device=device), "PPG_RNN", 200.0
+
+
 def _ppo_cartpole(device: str):
     from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
     cfg = PPOConfig(env_name="CartPole-v1", solve_threshold=495.0)
@@ -95,6 +110,9 @@ WORKLOADS = {
     "noisy_dqn_flappybird": _noisy_dqn_flappybird,
     "ppo_lunarlander": _ppo_lunarlander,
     "ppo_cartpole": _ppo_cartpole,
+    "ppo_rnn_lunarlander": _ppo_rnn_lunarlander,
+    "ppo_rnn_flappybird": _ppo_rnn_flappybird,
+    "ppg_rnn_lunarlander": _ppg_rnn_lunarlander,
     "sac_pendulum": _sac_pendulum,
     "sac_cartpole": _sac_cartpole,
     "td3_pendulum": _td3_pendulum,

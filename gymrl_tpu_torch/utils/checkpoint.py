@@ -2,10 +2,10 @@
 
 The whole train state — params, targets, optimizer moments and step
 counts, replay contents (with the PER sum-tree and max priority), the
-n-step window, env batch, normalization stats and reward scaler, PER β,
-the noise generator's state and the counters — is one ``torch.save``
-file, so a restore puts training and eval-time normalization back
-exactly.
+n-step window, env batch, the recurrent trainers' GRU hidden per env,
+normalization stats and reward scaler, PER β, the noise generator's state
+and the counters — is one ``torch.save`` file, so a restore puts training
+and eval-time normalization back exactly.
 
 Restore is strict. The file must have exactly the structure of the example
 state it is restored into, with every tensor of the same shape and dtype;
