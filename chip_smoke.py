@@ -65,9 +65,10 @@ only if all of them pass.
      JAX package's does bit for bit on the CPU; a push of many equal
      priorities rounds every delta the same way at the root, so the drift
      adds up, 4.4e-4 after these pushes on the CPU), and from the same
-     uniforms the sampled leaf indices (exact, except where the target
-     lies within 1e-5 of the total of a leaf boundary; those are counted
-     and printed) and the IS weights (rtol 1e-5).
+     uniforms the sampled leaf indices (exact, except where the two paths
+     part at a level whose target lay within 1e-5 of the total of the left
+     sum the CPU's descent compared it with; those are counted and printed)
+     and the IS weights (rtol 1e-5).
   8. DQN-family updates: one update of each of the five family presets at
      its CLI width, on the card and on the CPU from the same params, the
      same replay contents, sampled draws and NoisyNet ε (made on the CPU).
@@ -824,6 +825,25 @@ def phase_flappy(device: torch.device, num: int = CLASSIC_ENVS) -> dict:
     return result
 
 
+def _per_descent_margins(tree: torch.Tensor, u: torch.Tensor,
+                         batch: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``per_sample``'s descent on a CPU float32 tree, in its own arithmetic:
+    the leaf indices and ``|target - left sum|`` at every level ([levels, B],
+    level 0 at the root)."""
+    capacity = tree.shape[0] // 2
+    target = (torch.arange(batch, dtype=torch.float32) + u) * (tree[1] / batch)
+    node = torch.ones(batch, dtype=torch.int64)
+    margins = []
+    for _ in range(capacity.bit_length() - 1):
+        left = 2 * node
+        left_sum = tree[left]
+        margins.append((target.double() - left_sum.double()).abs())
+        go_left = target < left_sum
+        node = torch.where(go_left, left, left + 1)
+        target = torch.where(go_left, target, target - left_sum)
+    return node - capacity, torch.stack(margins)
+
+
 def _per_case(device: torch.device, capacity: int, batch: int, rounds: int = PER_ROUNDS) -> dict:
     """The same pushes, priority updates and sample on the CPU and ``device``."""
     from collections import namedtuple
@@ -869,12 +889,23 @@ def _per_case(device: torch.device, capacity: int, batch: int, rounds: int = PER
     (_, idx_cpu, w_cpu), (_, idx_dev, w_dev) = samples
     idx_dev, w_dev = idx_dev.cpu(), w_dev.cpu()
     differ = idx_cpu != idx_dev
-    # a differing index is a boundary tie if its target sits within 1e-5 of the
-    # total of the float64 prefix sum between the two leaves
-    prefix = torch.cumsum(leaves, 0)
-    target = (torch.arange(batch, dtype=torch.float64) + u.double()) * (total / batch)
-    lo = torch.minimum(idx_cpu, idx_dev)[differ]
-    boundary = (target[differ] - prefix[lo]).abs() <= 1e-5 * total
+    # a differing index is a boundary tie if, at the level where the two leaves'
+    # paths part, the CPU's descent held a target within 1e-5 of the total of
+    # the left sum it compared it with. The descent compares against the tree's
+    # internal nodes, which drift from the leaves' prefix sums (the root by
+    # ``root_vs_float64_leaf_sum_rel``), so the margin is read from a replay of
+    # the descent on the CPU's tree, which must reproduce the CPU's indices.
+    idx_replay, margins = _per_descent_margins(cpu.tree, u, batch)
+    if not torch.equal(idx_replay, idx_cpu):
+        raise AssertionError("the replayed descent does not give the CPU's indices")
+    split_bit = torch.zeros_like(idx_cpu)
+    x = idx_cpu ^ idx_dev
+    while bool((x > 0).any()):
+        split_bit += (x > 0).long()
+        x = x // 2
+    level = margins.shape[0] - split_bit  # the level whose choice is bit split_bit - 1
+    margin = margins[level.clamp(max=margins.shape[0] - 1), torch.arange(batch)][differ]
+    boundary = margin <= 1e-5 * total
     same = ~differ
     w_err = float(((w_dev[same] - w_cpu[same]).abs() / w_cpu[same].abs()).max())
     result = {
@@ -884,6 +915,7 @@ def _per_case(device: torch.device, capacity: int, batch: int, rounds: int = PER
         "root_vs_float64_leaf_sum_rel": root_rel,
         "max_priority": [float(cpu.max_priority), float(dev.max_priority)],
         "indices_differ": int(differ.sum()), "boundary_ties": int(boundary.sum()),
+        "tie_max_margin_rel": float(margin.max()) / total if bool(differ.any()) else 0.0,
         "weights_max_rel_err": w_err,
     }
     log("phase 7 per: " + json.dumps(result))
