@@ -3,7 +3,7 @@
     python chip_smoke.py
 
 Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
-ported family (off-policy, DQN, recurrent) on the card and checks what
+ported family (off-policy, DQN, recurrent, mHC) on the card and checks what
 comes out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
@@ -111,6 +111,36 @@ only if all of them pass.
      count (40 per iteration, 24 more on PPG's auxiliary iteration), the
      auxiliary metrics nonzero exactly where the phase ran, that every
      parameter moved and the state stayed on the card, and the restore.
+ 12. The mHC family's pieces, card vs CPU, from inputs made on the CPU:
+     ``sinkhorn_knopp`` on 4096 [2, 2] blocks (P, u, v to rtol 1e-5);
+     ``MHCBackbone(256, 2, 2, 10)`` with nonzero ``w`` on 4096 rows, its
+     output to ``SEQ_ATOL`` and its stop-gradient gradients to rtol 1e-5
+     plus 1e-5 of each tensor's largest entry; ``URNNCell`` gru(512) and
+     lstm(512) unrolled over [128, 8], against the CPU and against the
+     card's own stepwise forward, to ``SEQ_ATOL``; one grad step each of
+     the ``ppo_full`` preset, the same with ``clip_cov_ratio`` 0.2 on the
+     same uniforms, and the ``ppo_lstm`` preset, on the same minibatch
+     (1024 rows; 128 sequences × 8 steps) from the same params (the actor
+     head ×500 and ``w`` nonzero, so ERC and clip-cov act): the loss to
+     rtol 1e-5, params under phase 5's rules with phase 10's tie rule on
+     every PReLU unit, the RND pair's included. ERC's tie rule: a sample
+     whose entropy ratio the devices put on different sides of 1 ± 0.06
+     must lie within ``ERC_TIE`` of the edge, and the CPU's step then takes
+     the card's side; clip-cov's masks must be equal, unless a covariance
+     lies within ``COV_TIE`` of a band edge on different sides (the CPU then
+     takes the card's mask). The RND target must stay equal to the bit.
+ 13. The mHC-family CLI workloads, ppo_full_lunarlander and
+     ppo_lstm_lunarlander, at full width (64 envs × 64 steps, 4 epochs of
+     4 minibatches of 1024 rows / 128 sequences of 8 steps), as in phase
+     11: one warm-up iteration through ``TrainLoop``, two timed ones
+     (env-steps/s, rollout / next values + GAE / SGD times from CUDA
+     events, peak memory), ``TrainLoop.test`` (five episodes, the hidden
+     carried for ppo_lstm) and a checkpoint restore. Checks the env-step
+     count, Adam's step count (16 per iteration), that lr and the entropy
+     coefficient follow the anneal, that the hidden is zero exactly at the
+     last dones, finite metrics, that every parameter moved except the RND
+     target (equal to the bit), that the state stayed on the card, and the
+     restore.
   Last, the kernels: the port has no hand-written kernel (the JAX package
   has no Pallas kernel to port), so the kernel list is empty.
 
@@ -155,6 +185,10 @@ PER_WEIGHT_RTOL = 1e-5
 PACK_STEPS, PACK_ENVS, PACK_ROWS = 128, 32, 8  # the recurrent presets' rollout and R
 SEQ_ROWS = 64  # rows of a recurrent minibatch
 SEQ_ATOL = 1e-5  # the re-unroll's tolerance (module docstring)
+MHC_ROWS = 4096  # Sinkhorn blocks and backbone rows of phase 12
+URNN_SHAPE = (128, 8)  # ppo_lstm's minibatch: sequences × steps
+ERC_TIE = 1e-5  # an entropy ratio this close to ERC's band edge may fall on either side
+COV_TIE = 1e-5  # a covariance this close to clip-cov's band edge may fall on either side
 
 
 def log(msg: str) -> None:
@@ -959,12 +993,13 @@ class FamilyDraws:
                 for draw in self.eps[:count]]
 
 
-def _watch_family_ties(net) -> tuple[list, list]:
-    """Forward hooks on the net's activation producers recording their
-    outputs in grad-enabled forwards. Returns (records, hook handles)."""
+def _watch_family_ties(net, producers=None) -> tuple[list, list]:
+    """Forward hooks on the net's activation producers (by default those of
+    its ``activation_edges``) recording their outputs in grad-enabled
+    forwards. Returns (records, hook handles)."""
     records, handles = [], []
     modules = dict(net.named_modules())
-    for name in {e[0] for e in net.activation_edges()}:
+    for name in producers or {e[0] for e in net.activation_edges()}:
         def hook(mod, args, out, name=name):
             if torch.is_grad_enabled():
                 records.append((name, out.detach().reshape(-1, out.shape[-1])))
@@ -1428,6 +1463,389 @@ def phase_rnn_workloads(device: torch.device, names=RECURRENT,
     return results
 
 
+# -- phase 12: the mHC family's pieces, card vs CPU ---------------------------------------------
+MHC = ("ppo_full_lunarlander", "ppo_lstm_lunarlander")
+
+
+def _max_err(got: torch.Tensor, want: torch.Tensor, rel: bool = False) -> float:
+    e = (got.detach().cpu().double() - want.detach().cpu().double()).abs()
+    if rel:
+        e = e / want.detach().cpu().double().abs().clamp(min=1e-30)
+    return float(e.max())
+
+
+def _grads_ok(got: dict, want: dict) -> tuple[float, bool]:
+    """The largest gradient difference relative to its tensor's largest
+    entry, and whether every entry is within rtol 1e-5 plus 1e-5 of it."""
+    worst, ok = 0.0, True
+    for k, w in want.items():
+        w, g = w.double(), got[k].detach().cpu().double()
+        scale = float(w.abs().max()) or 1e-30
+        e = (g - w).abs()
+        worst = max(worst, float(e.max()) / scale)
+        ok &= bool((e <= UPDATE_RTOL * w.abs() + 1e-5 * scale).all())
+    return worst, ok
+
+
+def phase_mhc_pieces(device: torch.device, rows: int = MHC_ROWS,
+                     seqs: tuple[int, int] = URNN_SHAPE) -> dict:
+    """Sinkhorn on ``rows`` [2, 2] blocks, the ``MHCBackbone(256, 2, 2, 10)``
+    forward and its stop-gradient gradients on ``rows`` observations (nonzero
+    ``w``), and the URNN cells (gru and lstm, hidden 512) unrolled over
+    ``seqs`` on the card, against the CPU; the cells also against the
+    card's own stepwise forward."""
+    from gymrl_tpu_torch.nn.mhc import MHCBackbone, sinkhorn_knopp
+    from gymrl_tpu_torch.nn.recurrent import URNNCell
+
+    gen = torch.Generator().manual_seed(31)
+    A = torch.exp(2.0 * torch.randn((rows, 2, 2), generator=gen))
+    cpu_out = sinkhorn_knopp(A, 10)
+    dev_out = sinkhorn_knopp(A.to(device), 10)
+    result = {"sinkhorn": {"blocks": rows, "iters": 10, "form": "elementwise",
+                           "max_rel_err": {n: _max_err(d, c, rel=True)
+                                           for n, d, c in zip("Puv", dev_out, cpu_out)}}}
+
+    nets = {"cpu": MHCBackbone(8, 256, 2, 2, 10, generator=torch.Generator().manual_seed(0))}
+    with torch.no_grad():
+        for name, p in nets["cpu"].named_parameters():
+            if name.endswith(".w"):  # nonzero w: the maps then read the state
+                p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    nets["dev"] = copy.deepcopy(nets["cpu"]).to(device)
+    obs = 2.0 * torch.randn((rows, 8), generator=gen)
+    w_out = torch.randn((rows, 256), generator=gen)
+    outs, grads = {}, {}
+    for role, net in nets.items():
+        d = next(net.parameters()).device
+        outs[role] = net(obs.to(d))
+        (outs[role] * w_out.to(d)).sum().backward()
+        grads[role] = {k: p.grad for k, p in net.named_parameters()}
+    worst_grad, grads_ok = _grads_ok(grads["dev"], grads["cpu"])
+    result["mhc_backbone"] = {"rows": rows, "dim": 256, "rate": 2, "layers": 2,
+                              "out_max_abs_err": _max_err(outs["dev"], outs["cpu"]),
+                              "grad_max_err_over_tensor_max": worst_grad}
+
+    cells = {}
+    B, L = seqs
+    for kind in ("gru", "lstm"):
+        cell = URNNCell(256, 512, kind, generator=torch.Generator().manual_seed(1))
+        cell_dev = copy.deepcopy(cell).to(device)
+        h0 = torch.tanh(torch.randn((B, cell.packed_size), generator=gen))
+        xs = torch.randn((B, L, 256), generator=gen)
+        with torch.no_grad():
+            cpu_seq = cell.unroll(h0, xs)
+            dev_seq = cell_dev.unroll(h0.to(device), xs.to(device))
+            h, steps = h0.to(device), []
+            for t in range(L):
+                h, out = cell_dev(h, xs[:, t].to(device))
+                steps.append(out)
+        cells[kind] = {
+            "card_vs_cpu": {"outs": _max_err(dev_seq[0], cpu_seq[0]),
+                            "last_hidden": _max_err(dev_seq[1], cpu_seq[1])},
+            "unroll_vs_stepwise": {"outs": _max_err(dev_seq[0], torch.stack(steps, 1)),
+                                   "last_hidden": _max_err(dev_seq[1], h)}}
+    result["urnn"] = {"rows": B, "steps": L, "hidden": 512, "atol": SEQ_ATOL, **cells}
+    log("phase 12 mhc pieces: " + json.dumps(result))
+    if max(result["sinkhorn"]["max_rel_err"].values()) > UPDATE_RTOL:
+        raise AssertionError(f"Sinkhorn differs on the card: {result['sinkhorn']}")
+    if result["mhc_backbone"]["out_max_abs_err"] > SEQ_ATOL or not grads_ok:
+        raise AssertionError(f"the mHC backbone differs on the card: {result['mhc_backbone']}")
+    worst = max(v for c in cells.values() for part in c.values() for v in part.values())
+    if worst > SEQ_ATOL:
+        raise AssertionError(f"the URNN unroll differs by {worst}")
+    return result
+
+
+def _prelu_producers(net) -> list[str]:
+    """Every layer whose output passes a PReLU (each MLP's ``layer_i`` with
+    an ``act_i``), the RND pair's last blocks included."""
+    from gymrl_tpu_torch.nn.layers import MLP
+
+    return [f"{name}.layer_{i}" for name, m in net.named_modules() if isinstance(m, MLP)
+            for i in range(m.n) if hasattr(m, f"act_{i}")]
+
+
+def _mhc_minibatch(trainer, net, gen: torch.Generator) -> dict:
+    """One minibatch at the preset's size (1024 rows for ppo_full; 128
+    sequences of 8 steps for ppo_lstm): behaviour log-probs near the net's
+    own, old entropies ×U(0.9, 1.1) of the current ones (so ERC masks some),
+    advantages of both signs, old values near the returns."""
+    cfg = trainer.cfg
+    lstm = hasattr(cfg, "seq_len")
+    lead = (cfg.seqs_per_rollout // cfg.num_minibatches, cfg.seq_len) if lstm else \
+        (cfg.batch_total // cfg.num_minibatches,)
+    obs = 2.0 * torch.randn(lead + (trainer.obs_dim,), generator=gen)
+    mb = {"obs": obs}
+    if lstm:
+        mb["h0"] = torch.tanh(torch.randn((lead[0], net.packed_hidden), generator=gen))
+    with torch.no_grad():
+        logits = (trainer._seq_forward(net, mb["h0"], obs)[0] if lstm else net(obs)[0])
+    logp_all = torch.log_softmax(logits, -1)
+    action = torch.randint(0, trainer.n_actions, lead, generator=gen, dtype=torch.int32)
+    entropy = -(logp_all.exp() * logp_all).sum(-1)
+    ret = 3.0 * torch.randn(lead, generator=gen)
+    mb.update(action=action,
+              logp=logp_all.gather(-1, action.long()[..., None])[..., 0]
+              + 0.3 * torch.randn(lead, generator=gen),
+              old_entropy=entropy * (0.9 + 0.2 * torch.rand(lead, generator=gen)),
+              adv=2.0 * torch.randn(lead, generator=gen), ret=ret)
+    if lstm:
+        mb["old_value"] = ret + 0.4 * torch.randn(lead, generator=gen)
+    return mb
+
+
+def _erc_ratio(trainer, net, mb) -> torch.Tensor:
+    """ERC's entropy ratio of each sample of ``mb`` under ``net``, on the CPU."""
+    with torch.no_grad():
+        logits = (trainer._seq_forward(net, mb["h0"], mb["obs"])[0] if "h0" in mb
+                  else net(mb["obs"])[0])
+        logp_all = torch.log_softmax(logits, -1)
+        return (-(logp_all.exp() * logp_all).sum(-1) / (mb["old_entropy"] + 1e-8)).cpu()
+
+
+def phase_mhc_updates(device: torch.device, overrides=None) -> list[dict]:
+    """One grad step of the ppo_full preset, of the same with clip-cov on
+    (``clip_cov_ratio`` 0.2, the same uniforms on both devices), and of the
+    ppo_lstm preset, on the card and on the CPU from the same params (the
+    actor head ×500 and the mHC's ``w`` made nonzero, so clip-cov and ERC
+    act) and the same minibatch. Loss to rtol 1e-5; params under phase 5's
+    rules, the tie rule on every PReLU unit (the RND pair's too) where the
+    two devices put some row on different sides of its kink; the ERC tie
+    rule: a sample whose entropy ratio the devices put on different sides
+    of ``1 ± 0.06`` must lie within ERC_TIE of the edge, and the CPU's step
+    then takes the card's side (its old entropy moved by 2·ERC_TIE); the
+    clip-cov masks equal, or a covariance on different sides of a band
+    edge (the CPU then takes the card's mask). The RND target stays equal
+    to the bit on both."""
+    import dataclasses
+
+    from gymrl_tpu_torch.algos.base import pack_fields
+    from gymrl_tpu_torch.run import cli
+
+    cases = (("ppo_full_lunarlander", {}), ("ppo_full_lunarlander", {"clip_cov_ratio": 0.2}),
+             ("ppo_lstm_lunarlander", {}))
+    results = []
+    for name, extra in cases:
+        trainers = {}
+        for role, d in (("cpu", "cpu"), ("dev", str(device))):
+            tr = cli.WORKLOADS[name](d)[0]
+            trainers[role] = type(tr)(dataclasses.replace(tr.cfg, **(overrides or {}), **extra),
+                                      device=d)
+        cpu_tr, dev_tr = trainers["cpu"], trainers["dev"]
+        cfg = cpu_tr.cfg
+        lstm = hasattr(cfg, "seq_len")
+        gen = torch.Generator().manual_seed(41)
+        cpu_ts = cpu_tr.init(0)
+        with torch.no_grad():
+            for k, p in cpu_ts.params.named_parameters():
+                if k.endswith(".w"):
+                    p.add_(0.05 * torch.randn(p.shape, generator=gen))
+                elif k.startswith("actor.fc1."):
+                    p.mul_(500.0)
+        dev_ts = dev_tr.init(0)
+        dev_ts.params.load_state_dict(cpu_ts.params.state_dict())
+        states = {"cpu": cpu_ts, "dev": dev_ts}
+        mb = _mhc_minibatch(cpu_tr, cpu_ts.params, gen)
+        mbs = {"cpu": dict(mb), "dev": {k: v.to(device) for k, v in mb.items()}}
+        # ERC: give the CPU the card's side where the devices differ at an edge
+        lo, hi = 1.0 - cfg.erc_beta_low, 1.0 + cfg.erc_beta_high
+        ratio = {r: _erc_ratio(trainers[r], states[r].params, mbs[r]) for r in states}
+        inside = {r: (x > lo) & (x < hi) for r, x in ratio.items()}
+        differ = inside["cpu"] != inside["dev"]
+        edge = torch.minimum((ratio["dev"] - lo).abs(), (ratio["dev"] - hi).abs())
+        if bool((edge[differ] >= ERC_TIE).any()):
+            raise AssertionError(f"{name}: ERC masks differ off the band edges")
+        # the CPU's ratio must grow (its old entropy shrink) to reach the card's side
+        grow = torch.where(inside["dev"], ratio["dev"] < 1.0, ratio["dev"] >= 1.0)
+        old = mbs["cpu"]["old_entropy"]
+        mbs["cpu"]["old_entropy"] = torch.where(
+            differ, old * torch.where(grow, 1.0 - 2 * ERC_TIE, 1.0 + 2 * ERC_TIE), old)
+        lr, ent_coef = cfg.lr, cfg.entropy_coef
+        cov = {}
+        if not lstm:
+            from gymrl_tpu_torch.algos.ppo_full import cov_drop_mask
+
+            u = torch.rand(mb["obs"].shape[0], generator=gen)
+            if cfg.clip_cov_ratio > 0:
+                covs = {r: tr._covs(states[r].params, mbs[r]).cpu() for r, tr in trainers.items()}
+                for r, tr in trainers.items():
+                    cov[r] = cov_drop_mask(u.to(tr.device), covs[r].to(tr.device),
+                                           cfg.clip_cov_ratio, cfg.clip_cov_min,
+                                           cfg.clip_cov_max).cpu()
+                band = {r: (c > cfg.clip_cov_min) & (c < cfg.clip_cov_max)
+                        for r, c in covs.items()}
+                if not torch.equal(band["cpu"], band["dev"]):
+                    edge = (band["cpu"] != band["dev"])
+                    near = torch.minimum((covs["dev"] - cfg.clip_cov_min).abs(),
+                                         (covs["dev"] - cfg.clip_cov_max).abs())
+                    if bool((near[edge] >= COV_TIE).any()):
+                        raise AssertionError(f"{name}: clip-cov bands differ off the edges")
+                    cov["cpu"] = cov["dev"]  # the CPU takes the card's mask
+                elif not torch.equal(cov["cpu"], cov["dev"]):
+                    raise AssertionError(f"{name}: clip-cov masks differ from the same uniforms")
+            for r in states:
+                mbs[r]["cov_keep"] = cov[r].to(trainers[r].device) if cov else \
+                    torch.ones_like(mbs[r]["adv"])
+        targets = {r: {k: v.clone() for k, v in states[r].params.state_dict().items()
+                       if k.startswith("rnd.target.")} for r in states}
+        losses, metrics, records = {}, {}, {}
+        for role, tr in trainers.items():
+            ts = states[role]
+            with torch.no_grad():
+                losses[role] = float(tr._loss(ts.params, mbs[role], ent_coef)[0])
+            records[role], handles = _watch_family_ties(ts.params, _prelu_producers(ts.params))
+            if lstm:
+                rows, spec = pack_fields(mbs[role])
+                step = tr._grad_step(ts, rows, spec, lambda net, m, tr=tr: tr._loss(net, m, ent_coef))
+            else:
+                step = tr._grad_step(ts, mbs[role], ent_coef)
+            metrics[role] = {k: float(v) for k, v in step.items()}
+            for h in handles:
+                h.remove()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        pairs = [(n, (a, b)) for (n, a), (_, b) in zip(records["cpu"], records["dev"])]
+        exempt = _family_exempt(cpu_ts.params, pairs,
+                                lambda ab: ((ab[0] >= 0) != (ab[1].cpu() >= 0)).any(dim=0))
+        want = dict(cpu_ts.params.named_parameters())
+        got = dict(dev_ts.params.named_parameters())
+        worst = worst_exempt = 0.0
+        n_exempt = 0
+        for k, w in want.items():
+            e = (got[k].detach().cpu().double() - w.detach().double()).abs()
+            ok = (e <= PARAM_ATOL) | (exempt[k] & (e <= 2.0 * lr))
+            if not bool(ok.all()):
+                raise AssertionError(f"{name} {extra}: {k} differs by {float(e.max())} on the card")
+            if bool((~exempt[k]).any()):
+                worst = max(worst, float(e[~exempt[k]].max()))
+            if bool(exempt[k].any()):
+                worst_exempt = max(worst_exempt, float(e[exempt[k]].max()))
+            n_exempt += int(exempt[k].sum())
+        for r in states:
+            now = states[r].params.state_dict()
+            if not all(torch.equal(now[k], v) for k, v in targets[r].items()):
+                raise AssertionError(f"{name}: the RND target moved on {r}")
+        loss_rel = abs(losses["dev"] - losses["cpu"]) / abs(losses["cpu"])
+        result = {"workload": name, "overrides": extra, "rows": list(mb["adv"].shape),
+                  "loss_cpu": losses["cpu"], "loss_rel_err": loss_rel,
+                  "erc_masked": int((~inside["dev"]).sum()), "erc_ties": int(differ.sum()),
+                  "cov_dropped": int((cov["cpu"] == 0).sum()) if cov else 0,
+                  "metric_abs_err": {k: abs(metrics["dev"][k] - v)
+                                     for k, v in metrics["cpu"].items()},
+                  "param_max_abs_err": worst, "exempt_entries": n_exempt,
+                  "exempt_max_abs_err": worst_exempt,
+                  "rnd_target_equal": True if targets["cpu"] else None}
+        log("phase 12 mhc update: " + json.dumps(result))
+        if loss_rel > UPDATE_RTOL:
+            raise AssertionError(f"{name} {extra}: loss {losses['dev']} on the card, "
+                                 f"{losses['cpu']} on the CPU")
+        results.append(result)
+    return results
+
+
+# -- phase 13: the mHC family's workloads on the card ---------------------------------------
+def phase_mhc_workloads(device: torch.device, names=MHC,
+                        timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5,
+                        overrides=None) -> list[dict]:
+    """Each mHC-family CLI workload through TrainLoop: a warm-up iteration,
+    ``timed_iters`` timed ones, the test (the hidden carried for ppo_lstm), a
+    checkpoint restore."""
+    import dataclasses
+
+    from gymrl_tpu_torch.algos.ppo_full import annealed
+    from gymrl_tpu_torch.run import cli
+    from gymrl_tpu_torch.run.loop import TrainLoop
+    from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cuda = device.type == "cuda"
+    results = []
+    for name in names:
+        trainer, algo, solve = cli.WORKLOADS[name](str(device))
+        if overrides:
+            cfg = dataclasses.replace(trainer.cfg, **{k: v for k, v in overrides.items()
+                                                      if hasattr(trainer.cfg, k)})
+            trainer = type(trainer)(cfg, device=device)
+        cfg = trainer.cfg
+        per_iter = cfg.batch_total
+        ts0 = trainer.init(0)
+        initial = {n: v.detach().clone() for n, v in ts0.params.state_dict().items()}
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)  # the loop saves to ./checkpoints
+            try:
+                loop = TrainLoop(trainer, algo, log_metrics=False, log_every=1, save_every=10 ** 12)
+            finally:
+                os.chdir(cwd)
+            t0 = time.perf_counter()
+            ts, _ = loop.train(per_iter, solve_threshold=solve, ts=ts0)  # warm-up
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            warm_s = time.perf_counter() - t0
+            clock = PhaseClock(device)
+            walls, phases, outs, anneal = [], [], [], []
+            for _ in range(timed_iters):
+                anneal.append(annealed(cfg, ts.env_steps))
+                t0 = time.perf_counter()
+                clock.start()
+                ts, out = trainer.train_iter(ts, timer=clock.mark)
+                if cuda:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                phases.append(clock.phase_ms())
+                outs.append({k: float(v) for k, v in out.metrics.items()})
+            peak = torch.cuda.max_memory_allocated(device) if cuda else None
+            t0 = time.perf_counter()
+            mean_reward = loop.test(ts, episodes=episodes)
+            test_s = time.perf_counter() - t0
+            path = save_checkpoint(loop.ckpt_path, ts)
+            restored = restore_checkpoint(path, trainer.init(1))
+
+        iters = timed_iters + 1
+        result = {
+            "workload": name, "env_steps": ts.env_steps, "warmup_iter_s": warm_s,
+            "env_steps_per_s": timed_iters * per_iter / sum(walls),
+            "iter_wall_ms": [w * 1e3 for w in walls],
+            "phase_ms": {p: [ph[p] for ph in phases] for p in phases[0]},
+            "peak_memory_bytes": peak, "metrics": outs,
+            "test_episodes": episodes, "test_mean_reward": mean_reward, "test_s": test_s,
+        }
+        if ts.env_steps != iters * per_iter:
+            raise AssertionError(f"{name}: env_steps {ts.env_steps}")
+        if [(m["lr"], m["ent_coef"]) for m in outs] != anneal:
+            raise AssertionError(f"{name}: lr / ent_coef {outs} do not follow the anneal {anneal}")
+        if not all(math.isfinite(v) for m in outs for v in m.values()) \
+                or not math.isfinite(mean_reward):
+            raise AssertionError(f"{name}: non-finite metrics {outs} / test {mean_reward}")
+        want_steps = iters * cfg.num_epochs * cfg.num_minibatches
+        if _adam_counts(ts.opt_state) != {want_steps}:
+            raise AssertionError(f"{name}: Adam counts {_adam_counts(ts.opt_state)} != {want_steps}")
+        state = ts.params.state_dict()
+        on_card = [v.device.type == device.type for v in state.values()]
+        if hasattr(ts, "hidden"):
+            last_done = out.ep_done[-1]
+            hidden = ts.hidden.abs().sum(dim=-1)
+            result["envs_done_at_last_step"] = int(last_done.sum())
+            if bool((hidden[last_done] != 0).any()) or not bool((hidden[~last_done] > 0).all()):
+                raise AssertionError(f"{name}: the hidden is not zero exactly at the last dones")
+            on_card.append(ts.hidden.device.type == device.type)
+        if not all(on_card):
+            raise AssertionError(f"{name}: the state left the device")
+        frozen = [n for n in initial if n.startswith("rnd.target.")]
+        if not all(torch.equal(state[n], initial[n]) for n in frozen):
+            raise AssertionError(f"{name}: the RND target moved")
+        still = [n for n, v in initial.items() if n not in frozen and torch.equal(state[n], v)]
+        if still:
+            raise AssertionError(f"{name}: {still} did not move")
+        got, want = _state_tensors(restored), _state_tensors(ts)
+        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+            raise AssertionError(f"{name}: the restored state differs from the trained one")
+        result.update(adam_steps=want_steps, rnd_target_tensors_equal=len(frozen),
+                      checkpoint_restored=True)
+        log("phase 13 mhc workload: " + json.dumps(result))
+        results.append(result)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1455,6 +1873,9 @@ def main() -> int:
     phase_seq_forward(device)
     phase_rnn_updates(device)
     phase_rnn_workloads(device)
+    phase_mhc_pieces(device)
+    phase_mhc_updates(device)
+    phase_mhc_workloads(device)
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,6 +22,8 @@ from gymrl_tpu_torch.algos.dqn_variants import (
 )
 from gymrl_tpu_torch.algos.ppg import PPGConfig, PPGTrainer, ppg_rnn_lunarlander_config
 from gymrl_tpu_torch.algos.ppo import ActorCritic, PPOConfig, PPOTrainer, PPOTrainState
+from gymrl_tpu_torch.algos.ppo_full import FullTrainState, PPOFullConfig, PPOFullTrainer
+from gymrl_tpu_torch.algos.ppo_lstm import LSTMTrainState, PPOLSTMConfig, PPOLSTMTrainer
 from gymrl_tpu_torch.algos.ppo_rnn import (
     PPORNNConfig,
     PPORNNTrainer,
@@ -38,6 +40,8 @@ __all__ = [
     "ActorCritic", "PPOConfig", "PPOTrainer", "PPOTrainState",
     "PPORNNConfig", "PPORNNTrainer", "RNNTrainState", "ppo_rnn_lunarlander_config",
     "ppo_rnn_flappybird_config", "PPGConfig", "PPGTrainer", "ppg_rnn_lunarlander_config",
+    "PPOFullConfig", "PPOFullTrainer", "FullTrainState",
+    "PPOLSTMConfig", "PPOLSTMTrainer", "LSTMTrainState",
     "OffPolicyConfig", "DDPGTrainer", "TD3Trainer", "SACTrainer", "DiscreteSACTrainer",
     "ddpg_config", "td3_config", "sac_config", "sac_discrete_config",
 ]

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.utils.device import resolve_device
+from gymrl_tpu_torch.utils.logging import get_logger
 
 
 class IterOut(NamedTuple):
@@ -110,6 +111,31 @@ def set_grads(params: list[torch.nn.Parameter], loss: torch.Tensor) -> None:
         p.grad = g
 
 
+def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
+              loss_fn: Callable[[nn.Module, dict], tuple[torch.Tensor, dict]], mb: dict,
+              max_grad_norm: float) -> dict[str, torch.Tensor]:
+    """One clipped Adam step of ``loss_fn(net, mb)``; returns its metrics,
+    detached. A parameter the loss does not read (PPG's other value head,
+    ppo_lstm's frozen RND target) gets a zero gradient, so Adam still
+    decays its moments and counts the step, as optax does."""
+    loss, metrics = loss_fn(net, mb)
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    params = list(net.parameters())
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_grads_by_global_norm_([p.grad for p in params], max_grad_norm)
+    opt.step()
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def mean_metrics(history: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
+    """Each metric averaged over the gradient steps of ``history``."""
+    means = torch.stack([torch.stack(list(m.values())) for m in history]).mean(dim=0)
+    return dict(zip(history[0].keys(), means.unbind()))
+
+
 def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
          foreach: bool) -> torch.optim.Adam:
     """``torch.optim.Adam`` with its state made at construction, as optax's
@@ -152,7 +178,8 @@ class Trainer:
 
     @torch.no_grad()
     def eval_episodes(self, ts, noise, n_episodes: int):
-        """Deterministic eval: n parallel fresh episodes until each is done.
+        """Deterministic eval: n parallel fresh episodes until each is done,
+        the policy's carry (a recurrent hidden) threaded through each.
 
         Rewards count only until each instance's first done (latched mask),
         so stopping once every episode is done gives the reference's result
@@ -161,11 +188,12 @@ class Trainer:
         env = self.venv.env
         params = self.venv.params
         state, obs = env.reset_batch(params, noise, n_episodes)
+        carry = self.policy_reset(n_episodes)
         done = torch.zeros(n_episodes, dtype=torch.bool, device=obs.device)
         ret = torch.zeros(n_episodes, device=obs.device)
         length = torch.zeros(n_episodes, dtype=torch.int32, device=obs.device)
         for _ in range(env.max_steps):
-            action = self.policy(ts, obs, noise, deterministic=True)
+            carry, action = self.policy_step(ts, carry, obs, noise)
             sr = env.step_batch(params, state, action, noise)
             alive = ~done
             ret = ret + sr.reward * alive
@@ -175,3 +203,41 @@ class Trainer:
             if bool(done.all()):
                 break
         return ret, length
+
+
+class RecurrentTrainer(Trainer):
+    """What the recurrent trainers (recurrent PPO, PPG, ppo_lstm) share: the
+    memoryless ``policy`` view of ``policy_step``, and epochs of shuffled
+    minibatches over packed sequence rows. A subclass gives
+    ``policy_reset``, ``policy_step`` and a config with ``num_minibatches``
+    and ``max_grad_norm``."""
+
+    _warned_stateless_policy = False
+
+    @torch.no_grad()
+    def policy(self, ts, obs, noise, deterministic: bool = True):
+        """MEMORYLESS view (a fresh carry on every call): it ignores the
+        cell's memory, and exists only so every trainer has ``policy``.
+        Recurrent behaviour is ``policy_step`` / ``eval_episodes``."""
+        if not self._warned_stateless_policy:
+            get_logger().warning(f"{type(self).__name__}.policy() is memoryless (h=0 each "
+                                 "call); use policy_step/eval_episodes for recurrent eval")
+            self._warned_stateless_policy = True
+        return self.policy_step(ts, self.policy_reset(obs.shape[0]), obs, noise,
+                                deterministic)[1]
+
+    def _grad_step(self, ts, rows: torch.Tensor, spec: dict, loss_fn) -> dict[str, torch.Tensor]:
+        """One clipped Adam step (``grad_step``) on a minibatch of packed rows."""
+        return grad_step(ts.params, ts.opt_state, loss_fn, unpack_fields(rows, spec),
+                         self.cfg.max_grad_norm)
+
+    def _epochs(self, ts, packed: torch.Tensor, spec: dict, perms: torch.Tensor,
+                loss_fn) -> dict[str, torch.Tensor]:
+        """Epochs of shuffled minibatches, one permutation per epoch; returns
+        the metrics averaged over every gradient step."""
+        n_mb = self.cfg.num_minibatches
+        history = []
+        for perm in perms:
+            for rows in packed[perm].reshape(n_mb, packed.shape[0] // n_mb, -1):
+                history.append(self._grad_step(ts, rows, spec, loss_fn))
+        return mean_metrics(history)

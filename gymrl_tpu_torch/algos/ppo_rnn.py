@@ -40,14 +40,13 @@ permutation per epoch.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, clip_grads_by_global_norm_, masked_mean, pack_fields,
-    unpack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, adam, masked_mean, pack_fields,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
@@ -63,9 +62,6 @@ from gymrl_tpu_torch.nn.layers import (
 )
 from gymrl_tpu_torch.nn.recurrent import MLPRNNCell
 from gymrl_tpu_torch.replay.episode import episode_buffer_pack
-from gymrl_tpu_torch.utils.logging import get_logger
-
-logger = get_logger()
 
 
 @dataclass(frozen=True)
@@ -206,16 +202,12 @@ class RNNRollout(NamedTuple):
     done: torch.Tensor  # f32[T, B]
 
 
-LossFn = Callable[[nn.Module, dict], tuple[torch.Tensor, dict]]
-
-
-class PPORNNTrainer(Trainer):
+class PPORNNTrainer(RecurrentTrainer):
     def __init__(self, cfg: PPORNNConfig, device: str | torch.device = "cuda"):
         super().__init__(cfg, device)
         self.venv = make_vec(cfg.env_name, cfg.num_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
-        self._warned_stateless_policy = False
 
     def make_net(self, generator: torch.Generator | None = None) -> RecurrentActorCritic:
         return RecurrentActorCritic(self.obs_dim, self.n_actions, self.cfg.feature_dim, generator)
@@ -240,18 +232,6 @@ class PPORNNTrainer(Trainer):
             env_steps=0,
         )
 
-    @torch.no_grad()
-    def policy(self, ts: RNNTrainState, obs, noise, deterministic: bool = True):
-        """MEMORYLESS view (h = 0 on every call): it ignores the GRU's memory,
-        and exists only so every trainer has ``policy``. Recurrent behaviour
-        is ``policy_step`` / ``eval_episodes``."""
-        if not self._warned_stateless_policy:
-            logger.warning(f"{type(self).__name__}.policy() is memoryless (h=0 each call); "
-                           "use policy_step/eval_episodes for recurrent eval")
-            self._warned_stateless_policy = True
-        return self.policy_step(ts, self.policy_reset(obs.shape[0]), obs, noise,
-                                deterministic)[1]
-
     def policy_reset(self, batch: int) -> torch.Tensor:
         """A fresh GRU hidden for ``batch`` episodes."""
         return torch.zeros(batch, self.cfg.feature_dim // 4, device=self.device)
@@ -263,29 +243,6 @@ class PPORNNTrainer(Trainer):
         if not deterministic:
             logits = logits + noise.gumbel(logits.shape)
         return h, torch.argmax(logits, dim=-1).to(torch.int32)
-
-    @torch.no_grad()
-    def eval_episodes(self, ts: RNNTrainState, noise, n_episodes: int):
-        """Deterministic eval carrying the GRU hidden through each episode.
-        Rewards count until each episode's first done, so it stops once
-        every episode is done. Returns (returns f32[n], lengths i32[n])."""
-        env, params = self.venv.env, self.venv.params
-        state, obs = env.reset_batch(params, noise, n_episodes)
-        h = self.policy_reset(n_episodes)
-        done = torch.zeros(n_episodes, dtype=torch.bool, device=obs.device)
-        ret = torch.zeros(n_episodes, device=obs.device)
-        length = torch.zeros(n_episodes, dtype=torch.int32, device=obs.device)
-        for _ in range(env.max_steps):
-            h, action = self.policy_step(ts, h, obs, noise)
-            sr = env.step_batch(params, state, action, noise)
-            alive = ~done
-            ret = ret + sr.reward * alive
-            length = length + alive.to(torch.int32)
-            done = done | sr.terminated | sr.truncated
-            state, obs = sr.state, sr.obs
-            if bool(done.all()):
-                break
-        return ret, length
 
     def train_iter(self, ts: RNNTrainState,
                    timer: PhaseTimer | None = None) -> tuple[RNNTrainState, IterOut]:
@@ -422,35 +379,6 @@ class PPORNNTrainer(Trainer):
             "entropy": entropy_mean,
             "approx_kl": masked_mean(mb["logp"] - logp, mask),
         }
-
-    def _grad_step(self, ts: RNNTrainState, rows: torch.Tensor, spec: dict,
-                   loss_fn: LossFn) -> dict[str, torch.Tensor]:
-        """One clipped Adam step on a minibatch of packed rows; returns the
-        loss function's metrics, detached. A parameter the loss does not
-        read (PPG's other value head) gets a zero gradient, so Adam still
-        decays its moments and counts the step, as optax does."""
-        loss, metrics = loss_fn(ts.params, unpack_fields(rows, spec))
-        ts.opt_state.zero_grad(set_to_none=True)
-        loss.backward()
-        params = list(ts.params.parameters())
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_grads_by_global_norm_([p.grad for p in params], self.cfg.max_grad_norm)
-        ts.opt_state.step()
-        return {k: v.detach() for k, v in metrics.items()}
-
-    def _epochs(self, ts: RNNTrainState, packed: torch.Tensor, spec: dict,
-                perms: torch.Tensor, loss_fn: LossFn) -> dict[str, torch.Tensor]:
-        """Epochs of shuffled minibatches, one permutation per epoch; returns
-        the metrics averaged over every gradient step."""
-        n_mb = self.cfg.num_minibatches
-        history = []
-        for perm in perms:
-            for rows in packed[perm].reshape(n_mb, packed.shape[0] // n_mb, -1):
-                history.append(self._grad_step(ts, rows, spec, loss_fn))
-        means = torch.stack([torch.stack(list(m.values())) for m in history]).mean(dim=0)
-        return dict(zip(history[0].keys(), means.unbind()))
 
     def _finish(self, ts: RNNTrainState, carry, stats, metrics):
         vec_state, hidden, obs_rms, scaler = carry

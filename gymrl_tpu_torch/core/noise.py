@@ -9,7 +9,8 @@ trainer's device and hands out every draw the main path makes:
   * the environment's draws for a batched reset or step (``env_reset`` /
     ``env_step``, which ask the env what it needs),
   * the per-epoch minibatch permutations (``permutations``; PPG's two
-    phases' together, ``ppg_permutations``),
+    phases' together, ``ppg_permutations``) and full-tricks PPO's clip-cov
+    uniforms (``cov_uniforms``),
   * DQN's ε-greedy draws (``explore``),
   * replay indices (``replay_indices``) and PER's stratified uniforms
     (``per_uniforms``),
@@ -73,6 +74,12 @@ class Noise:
         together every iteration (the reference splits its key three ways
         whether or not the auxiliary phase runs)."""
         return self.permutations(count1, n), self.permutations(count2, n)
+
+    def cov_uniforms(self, epochs: int, minibatches: int, size: int) -> torch.Tensor:
+        """``U[0, 1)[epochs, minibatches, size]``: full-tricks PPO's clip-cov
+        scores, one uniform per sample of each minibatch of each epoch,
+        asked for after the epochs' permutations."""
+        return self.uniform((epochs, minibatches, size))
 
     def explore(self, num: int, n_actions: int) -> tuple[torch.Tensor, torch.Tensor]:
         """ε-greedy draws: ``U[0, 1)[num]`` to compare with ε, and random

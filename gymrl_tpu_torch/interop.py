@@ -229,25 +229,29 @@ def _norm_stats(ts, ref_ts, dev) -> dict:
 
 def train_state_from_reference(trainer, ref_ts: Any, noise=None):
     """A whole ``jax.device_get``-ed ``DQNTrainState``,
-    ``OffPolicyTrainState``, ``FamilyTrainState`` or ``RNNTrainState`` → the
-    port trainer's state: nets, targets and Adam states (a raveled flat
-    optimizer's too), replay contents (and the PER sum-tree) with ``pos``
-    and ``size``, the env batch, the n-step window, the GRU hidden,
-    normalization statistics, β and the counters. The JAX key has no torch
-    counterpart: ``noise`` replaces it (default: the fresh state's own
-    ``Noise``); so do the per-env keys of a FlappyBird batch, which are
-    dropped."""
+    ``OffPolicyTrainState``, ``FamilyTrainState``, ``RNNTrainState``,
+    ``FullTrainState`` or ``LSTMTrainState`` → the port trainer's state:
+    nets, targets and Adam states (a raveled flat optimizer's too), replay
+    contents (and the PER sum-tree) with ``pos`` and ``size``, the env
+    batch, the n-step window, the recurrent hidden, normalization
+    statistics, β and the counters. The JAX key has no torch counterpart:
+    ``noise`` replaces it (default: the fresh state's own ``Noise``); so do
+    the per-env keys of a FlappyBird batch, which are dropped."""
     ts = trainer.init(0)
     dev = trainer.device
-    if hasattr(ref_ts, "hidden"):  # the recurrent family
+    if not hasattr(ref_ts, "replay"):  # the on-policy trainers
         ts.params.load_state_dict(params_from_flax(ref_ts.params))
         load_adam_state(ts.opt_state, ts.params, ref_ts.opt_state)
+        extra = {}
+        if hasattr(ref_ts, "hidden"):
+            extra["hidden"] = _tensor(ref_ts.hidden, dev)
+        if hasattr(ref_ts, "reward_scaler"):
+            extra.update(_norm_stats(ts, ref_ts, dev))
         return ts._replace(
             vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
-            hidden=_tensor(ref_ts.hidden, dev),
-            **_norm_stats(ts, ref_ts, dev),
             noise=ts.noise if noise is None else noise,
             env_steps=int(ref_ts.env_steps),
+            **extra,
         )
     common = dict(
         replay=replay_from_numpy(ref_ts.replay, type(ts.replay.data), dev),

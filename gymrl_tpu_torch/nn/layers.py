@@ -1,5 +1,5 @@
 """Layers (counterpart of ``gymrl_tpu/nn/layers.py``): ``Dense``, ``PReLU``,
-``NoisyDense``, ``MLP`` and ``PSCN``.
+``NoisyDense``, ``MLP``, ``PSCN`` and ``RMSNorm``.
 
 Parameter and submodule names are the flax ones (``layer_{i}``, ``act_{i}``,
 ``mlp_{i}``, ``kernel_mu``, ``negative_slope``, ...), so
@@ -190,6 +190,23 @@ class PSCN(nn.Module):
             else:
                 parts.append(x)
         return torch.cat(parts, dim=-1)
+
+
+class RMSNorm(nn.Module):
+    """flax's RMS normalization (reference ppo_full_lunarlander.py:273-284):
+    ``x · rsqrt(mean(x²) + eps)`` computed in float32, times ``scale``
+    (ones at init). Not ``torch.nn.RMSNorm``, whose parameter is named
+    ``weight`` and whose default eps differs."""
+
+    def __init__(self, dim: int, eps: float = 1e-8):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        x32 = x.float()
+        rms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + self.eps)
+        return (x32 * rms).to(x.dtype) * self.scale.to(x.dtype)
 
 
 Edge = tuple[str, str, int, int, int]

@@ -1,7 +1,7 @@
 """Workload entry points — ``python -m gymrl_tpu_torch.run.cli <workload> [--device D]``.
 
 Counterpart of ``gymrl_tpu/run/cli.py`` for the workloads the port has so
-far (15 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
+far (17 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
 to run on the CPU. Ctrl+C stops training gracefully and runs the final
 evaluation.
 """
@@ -75,6 +75,16 @@ def _ppg_rnn_lunarlander(device: str):
     return PPGTrainer(ppg_rnn_lunarlander_config(), device=device), "PPG_RNN", 200.0
 
 
+def _ppo_full_lunarlander(device: str):
+    from gymrl_tpu_torch.algos.ppo_full import PPOFullConfig, PPOFullTrainer
+    return PPOFullTrainer(PPOFullConfig(flat_optimizer=True), device=device), "PPO_FULL", 200.0
+
+
+def _ppo_lstm_lunarlander(device: str):
+    from gymrl_tpu_torch.algos.ppo_lstm import PPOLSTMConfig, PPOLSTMTrainer
+    return PPOLSTMTrainer(PPOLSTMConfig(flat_optimizer=True), device=device), "PPO_LSTM", 200.0
+
+
 def _ppo_cartpole(device: str):
     from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
     cfg = PPOConfig(env_name="CartPole-v1", solve_threshold=495.0)
@@ -113,6 +123,8 @@ WORKLOADS = {
     "ppo_rnn_lunarlander": _ppo_rnn_lunarlander,
     "ppo_rnn_flappybird": _ppo_rnn_flappybird,
     "ppg_rnn_lunarlander": _ppg_rnn_lunarlander,
+    "ppo_full_lunarlander": _ppo_full_lunarlander,
+    "ppo_lstm_lunarlander": _ppo_lstm_lunarlander,
     "sac_pendulum": _sac_pendulum,
     "sac_cartpole": _sac_cartpole,
     "td3_pendulum": _td3_pendulum,
