@@ -3,8 +3,8 @@
     python chip_smoke.py
 
 Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
-ported family (off-policy, DQN, recurrent, mHC) on the card and checks what
-comes out. Every phase raises on failure; the script exits 0
+ported family (off-policy, DQN, recurrent, mHC, tabular, pixels) on the card
+and checks what comes out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
   0. Device: a CUDA device must be present; prints ``nvidia-smi``'s name
@@ -141,6 +141,34 @@ only if all of them pass.
      last dones, finite metrics, that every parameter moved except the RND
      target (equal to the bit), that the state stayed on the card, and the
      restore.
+ 14. The tabular workloads: B=8192 FrozenLake, CliffWalking and MountainCar
+     states, made on the CPU by random-action steps with autoreset, stepped
+     once on the card and once on the CPU with the same actions and draws
+     (the grids exact, no env may differ; MountainCar to 1e-6, at most 8
+     envs off). ``torch.argmax`` on the card picks the first maximum (a zero
+     table gives action 0; a table full of ties picks what the CPU picks).
+     One Q-learning vector step (ε-greedy act, env step, the segment-mean
+     scatter) of each preset at its CLI width and at 8192 envs, card vs
+     CPU, from the same table (learned by 3 CPU iterations and rounded to
+     1/8, so that ties are common), env batch and draws: actions and the
+     env batch exact (greedy ties counted), the scatter's counts exact, the
+     table to rtol 1e-6 plus 1e-6 of its largest entry (the card adds the
+     TDs of duplicate pairs in another order). Then qlearning_frozenlake
+     and qlearning_cliffwalking through ``TrainLoop`` as in phase 6
+     (warm-up, two timed iterations with act / env / update CUDA-event
+     times, test, restore), and mountaincar_baseline through its CLI entry
+     and its 10-episode eval, which must reach the flag every time.
+ 15. Pixels and rendering: B=4096 CartPolePixels states stepped card vs CPU
+     as in phase 4 (frames and the nested CartPole state to 1e-5: pixel
+     coordinates near 48 carry float32 ulps of 3.8e-6; at most 8 envs off);
+     the ``ConvEncoder`` trunk on a [32, 48, 48, 4] batch card vs CPU to
+     ``SEQ_ATOL``, with both TF32 flags printed and required off; one
+     ``dqn_cartpole_pixels`` update card vs CPU under phase 8's rules, on
+     uint8 frames of a CPU rollout; the ``dqn_cartpole_pixels`` workload as
+     in phase 9, its replay's frame stores uint8; and ``render_episode``'s
+     rollout (``TrainLoop.episode_frames``, no GIF: the card's machine has
+     no PIL) of a lander and a FrozenLake episode from card states, every
+     frame uint8 of the renderer's shape.
   Last, the kernels: the port has no hand-written kernel (the JAX package
   has no Pallas kernel to port), so the kernel list is empty.
 
@@ -390,6 +418,23 @@ def _random_actions(env, num: int, gen: torch.Generator) -> torch.Tensor:
     return (torch.rand((num, env.act_dim), generator=gen) * 3.0 - 1.5) * env.action_bound
 
 
+def _to(x, device: torch.device):
+    """A tensor, or a (nested) NamedTuple or list of them, on ``device``."""
+    if x is None or isinstance(x, torch.Tensor):
+        return None if x is None else x.to(device)
+    if isinstance(x, list):
+        return [_to(v, device) for v in x]
+    return type(x)(*(_to(v, device) for v in x))
+
+
+def _leaves(state, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(dotted name, tensor) of a (nested) NamedTuple."""
+    out = []
+    for f, x in zip(state._fields, state):
+        out += _leaves(x, f"{prefix}{f}.") if isinstance(x, tuple) else [(prefix + f, x)]
+    return out
+
+
 def compare_env_step(env, device: torch.device, num: int, warm_steps: int, atol: float,
                      max_ties: int = PHYS_MAX_TIES) -> dict:
     """One step of ``env`` on ``device`` against the same step on the CPU, from
@@ -407,15 +452,15 @@ def compare_env_step(env, device: torch.device, num: int, warm_steps: int, atol:
     state, actions = vs.env_state, _random_actions(env, num, gen)
     draws = env.step_draws(noise, num)
     cpu = env.step_from(params, state, actions, draws)
-    on_dev = env.step_from(params, type(state)(*(x.to(device) for x in state)), actions.to(device),
-                           None if draws is None else draws.to(device))
+    on_dev = env.step_from(params, _to(state, device), actions.to(device), _to(draws, device))
     if device.type == "cuda":
         torch.cuda.synchronize()
 
     err = torch.zeros(num, dtype=torch.float64)
     flags_differ = torch.zeros(num, dtype=torch.bool)
     max_err, flag_counts = {}, {}
-    fields = list(zip(state._fields, on_dev.state, cpu.state))
+    fields = [(name, got, want) for (name, got), (_, want)
+              in zip(_leaves(on_dev.state), _leaves(cpu.state))]
     fields += [("reward", on_dev.reward, cpu.reward), ("terminated", on_dev.terminated, cpu.terminated),
                ("truncated", on_dev.truncated, cpu.truncated)]
     for name, got, want in fields:
@@ -815,7 +860,8 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
             if _adam_counts(ts.opt_state) != {want}:
                 raise AssertionError(f"{name}: Adam counts {_adam_counts(ts.opt_state)} != {want}")
         elif hasattr(ts, "beta"):  # the DQN family
-            result.update(_check_family(name, cfg, ts, ts_start, iters))
+            result.update(_check_family(name, cfg, ts, ts_start, iters),
+                          replay_obs_dtype=str(ts.replay.data.obs.dtype))
         else:
             updates = _expected_updates(cfg, iters)
             if ts.replay.size != min(iters * per_iter, cfg.memory_capacity):
@@ -1066,12 +1112,16 @@ def _family_update_case(name: str, device: torch.device, gen: torch.Generator):
     ts = trainer.init(0)
     cfg, d = trainer.cfg, trainer.obs_dim
     n = 4 * cfg.batch_size
-    obs = torch.randn((n, d), generator=gen)
-    done = (torch.rand(n, generator=gen) < 0.1).float()
-    batch = Transition(obs, torch.randint(0, trainer.n_actions, (n,), generator=gen,
-                                          dtype=torch.int32),
-                       torch.randn(n, generator=gen), obs + 0.1 * torch.randn((n, d), generator=gen),
-                       done * (torch.rand(n, generator=gen) < 0.7).float(), done)
+    if cfg.trunk == "conv":  # uint8 frames of a CPU rollout, as the replay holds them
+        batch = _pixel_transitions(trainer, n, gen)
+    else:
+        obs = torch.randn((n, d), generator=gen)
+        done = (torch.rand(n, generator=gen) < 0.1).float()
+        batch = Transition(obs, torch.randint(0, trainer.n_actions, (n,), generator=gen,
+                                              dtype=torch.int32),
+                           torch.randn(n, generator=gen),
+                           obs + 0.1 * torch.randn((n, d), generator=gen),
+                           done * (torch.rand(n, generator=gen) < 0.7).float(), done)
     batch = Transition(*(x.to(device) for x in batch))
     if cfg.use_per:
         replay = per_push_batch(ts.replay, batch)
@@ -1082,7 +1132,29 @@ def _family_update_case(name: str, device: torch.device, gen: torch.Generator):
     return trainer, ts._replace(replay=replay)
 
 
-def phase_family_updates(device: torch.device, names=FAMILY) -> list[dict]:
+def _pixel_transitions(trainer, n: int, gen: torch.Generator):
+    """``n`` transitions of a random-action rollout of ``trainer``'s pixel env
+    on the CPU, frames quantized to uint8."""
+    from gymrl_tpu_torch.algos.dqn_variants import Transition, quantize_frames
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.envs.rollout import VecEnv
+
+    env, b = trainer.venv.env, trainer.cfg.num_envs
+    venv = VecEnv(env, env.default_params(), b)
+    noise = Noise("cpu", int(torch.randint(0, 2 ** 31, (1,), generator=gen)))
+    vs, parts = venv.reset(noise), []
+    for _ in range(-(-n // b)):
+        action = torch.randint(0, env.n_actions, (b,), generator=gen, dtype=torch.int32)
+        obs = vs.obs
+        vs, tr = venv.step(vs, action, noise)
+        parts.append(Transition(quantize_frames(obs), action, tr.reward,
+                                quantize_frames(tr.next_obs), tr.terminated.float(),
+                                tr.done.float()))
+    return Transition(*(torch.cat(f)[:n] for f in zip(*parts)))
+
+
+def phase_family_updates(device: torch.device, names=FAMILY,
+                         label: str = "phase 8 family update") -> list[dict]:
     from gymrl_tpu_torch.core.noise import Noise
     from gymrl_tpu_torch.nn.layers import noisy_layers
     from gymrl_tpu_torch.replay.per import PERState
@@ -1140,7 +1212,7 @@ def phase_family_updates(device: torch.device, names=FAMILY) -> list[dict]:
             mp = result["max_priority"]
             if abs(mp[1] - mp[0]) > UPDATE_RTOL * mp[0]:
                 raise AssertionError(f"{name}: max priority differs: {result}")
-        log("phase 8 family update: " + json.dumps(result))
+        log(f"{label}: " + json.dumps(result))
         if result["loss_rel_err"] > UPDATE_RTOL:
             raise AssertionError(f"{name}: loss {loss_d} on the card, {loss_c} on the CPU")
         if abs(result["beta"][1] - result["beta"][0]) > UPDATE_RTOL * result["beta"][0]:
@@ -1846,6 +1918,259 @@ def phase_mhc_workloads(device: torch.device, names=MHC,
     return results
 
 
+# -- phase 14: the tabular workloads ------------------------------------------------------------
+TABULAR = ("qlearning_frozenlake", "qlearning_cliffwalking")
+GRID_WARM_STEPS = 30
+MC_WARM_STEPS = 100
+MC_ATOL = 1e-6
+Q_TIE = 1e-6  # Q-values this close may be ordered either way by the two devices
+Q_RTOL = 1e-6
+
+
+def phase_tabular_envs(device: torch.device, num: int = CLASSIC_ENVS) -> list[dict]:
+    from gymrl_tpu_torch.envs.cliffwalking import CliffWalking
+    from gymrl_tpu_torch.envs.frozenlake import FrozenLake
+    from gymrl_tpu_torch.envs.mountaincar import MountainCar
+
+    results = [
+        compare_env_step(FrozenLake(), device, num, GRID_WARM_STEPS, 0.0, max_ties=0),
+        compare_env_step(CliffWalking(), device, num, GRID_WARM_STEPS, 0.0, max_ties=0),
+        compare_env_step(MountainCar(), device, num, MC_WARM_STEPS, MC_ATOL),
+    ]
+    for r in results:
+        log("phase 14 tabular env: " + json.dumps(r))
+    return results
+
+
+class StepDraws:
+    """One Q-learning vector step's draws, made on the CPU and handed out on
+    any device: the ε-greedy pair, the env step's and the reset's."""
+
+    def __init__(self, device, explore, step, reset):
+        self.device, self.pair, self.step, self.reset = device, explore, step, reset
+
+    def explore(self, num, n_actions):
+        return tuple(x.to(self.device) for x in self.pair)
+
+    def env_step(self, env, num):
+        return _to(self.step, self.device)
+
+    def env_reset(self, env, num):
+        return _to(self.reset, self.device)
+
+
+def _qlearning_step_case(name: str, device: torch.device, num: int) -> dict:
+    """One vector step of ``num`` envs on the card against the CPU from the
+    same table, env batch and draws: a table learned by 3 CPU iterations,
+    with every entry rounded to 1/8 so that ties are common."""
+    import dataclasses
+
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.run import cli
+
+    base = cli.WORKLOADS[name]("cpu")[0]
+    cfg = dataclasses.replace(base.cfg, num_envs=num)
+    cpu_tr, dev_tr = type(base)(cfg, device="cpu"), type(base)(cfg, device=device)
+    ts = cpu_tr.init(0)
+    for _ in range(3):
+        ts, _ = cpu_tr.train_iter(ts)
+    q = torch.round(ts.q_table * 8.0) / 8.0
+    env, noise = cpu_tr.venv.env, Noise("cpu", 1)
+    draws = (noise.explore(num, cpu_tr.n_actions), env.step_draws(noise, num),
+             env.reset_draws(noise, num))
+    out = {}
+    for key, tr, d in (("cpu", cpu_tr, torch.device("cpu")), ("dev", dev_tr, device)):
+        out[key] = tr.vector_step(_to(q, d), _to(ts.vec_state, d), StepDraws(d, *draws),
+                                  ts.sample_count)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    (q_c, vs_c, tr_c, a_c, eps_c), (q_d, vs_d, tr_d, a_d, eps_d) = out["cpu"], out["dev"]
+    # Actions: exact. Rows whose greedy pick ties within Q_TIE are counted;
+    # from the same table a tie can break apart only if argmax stops taking
+    # the first maximum, so a differing action fails there too.
+    top2 = q[ts.vec_state.obs.long()].topk(2, dim=-1).values
+    tied = (top2[:, 0] - top2[:, 1]) <= Q_TIE
+    differ = a_d.cpu() != a_c
+    if bool(differ.any()):
+        raise AssertionError(f"{name}: {int(differ.sum())} actions differ, "
+                             f"{int((differ & tied).sum())} of them at a tie")
+    for f in ("obs", "ep_return", "ep_length"):
+        if not torch.equal(getattr(vs_d, f).cpu(), getattr(vs_c, f)):
+            raise AssertionError(f"{name}: the env batch's {f} differs")
+    index = (ts.vec_state.obs.long(), a_c.long())
+    cnt = {k: torch.zeros_like(_to(q, d)).index_put_(tuple(_to(i, d) for i in index),
+                                                     torch.ones(num, device=d), accumulate=True)
+           for k, d in (("cpu", torch.device("cpu")), ("dev", device))}
+    if not torch.equal(cnt["dev"].cpu(), cnt["cpu"]):
+        raise AssertionError(f"{name}: the scatter's counts differ")
+    err = (q_d.cpu().double() - q_c.double()).abs()
+    bound = Q_RTOL * q_c.double().abs() + Q_RTOL * float(q_c.abs().max())
+    result = {"workload": name, "envs": num, "epsilon": [eps_c, eps_d],
+              "greedy_ties": int(tied.sum()), "actions_differ": int(differ.sum()),
+              "pairs_updated": int((cnt["cpu"] > 0).sum()), "max_count": int(cnt["cpu"].max()),
+              "q_max_abs_err": float(err.max()),
+              "q_max_rel_err": float((err / q_c.double().abs().clamp(min=1e-30)).max())}
+    if eps_c != eps_d or not bool((err <= bound).all()):
+        raise AssertionError(f"{name}: the Q-table or ε differs: {result}")
+    return result
+
+
+def phase_tabular_steps(device: torch.device, num: int = CLASSIC_ENVS) -> list[dict]:
+    """The Q-learning vector step card vs CPU, at the CLI width and at ``num``
+    envs; ``torch.argmax`` picks the first maximum on the card too."""
+    zero = torch.argmax(torch.zeros(num, 4, device=device), dim=-1)
+    ties = torch.randint(0, 3, (num, 4), generator=torch.Generator().manual_seed(2)).float()
+    first_max = bool((zero == 0).all()) and torch.equal(
+        torch.argmax(ties.to(device), dim=-1).cpu(), torch.argmax(ties, dim=-1))
+    if not first_max:
+        raise AssertionError("torch.argmax does not pick the first maximum on the card")
+    from gymrl_tpu_torch.run import cli
+
+    results = []
+    for name in TABULAR:
+        for b in (cli.WORKLOADS[name]("cpu")[0].cfg.num_envs, num):
+            r = _qlearning_step_case(name, device, b)
+            r["argmax_first_max"] = first_max
+            log("phase 14 q-learning step: " + json.dumps(r))
+            results.append(r)
+    return results
+
+
+def phase_tabular_workloads(device: torch.device, names=TABULAR,
+                            timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5) -> list[dict]:
+    """The tabular CLI workloads as in phase 6 (warm-up, timed iterations
+    with act / env / update CUDA-event times, test, restore), then the
+    MountainCar baseline through its CLI entry and its 10-episode eval."""
+    from gymrl_tpu_torch.algos.tabular import MountainCarBaseline
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.run import cli
+    from gymrl_tpu_torch.run.loop import TrainLoop
+    from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    cuda = device.type == "cuda"
+    results = []
+    for name in names:
+        trainer, algo, solve = cli.WORKLOADS[name](str(device))
+        cfg = trainer.cfg
+        per_iter = cfg.steps_per_iter * cfg.num_envs
+        cwd = os.getcwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                loop = TrainLoop(trainer, algo, log_metrics=False, log_every=1, save_every=10 ** 12)
+            finally:
+                os.chdir(cwd)
+            t0 = time.perf_counter()
+            ts, _ = loop.train(per_iter, solve_threshold=solve)
+            if cuda:
+                torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            clock = PhaseClock(device)
+            walls, phases = [], []
+            for _ in range(timed_iters):
+                t0 = time.perf_counter()
+                clock.start()
+                ts, out = trainer.train_iter(ts, timer=clock.mark)
+                if cuda:
+                    torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                phases.append(clock.phase_ms())
+            t0 = time.perf_counter()
+            mean_reward = loop.test(ts, episodes=episodes)
+            test_s = time.perf_counter() - t0
+            restored = restore_checkpoint(save_checkpoint(loop.ckpt_path, ts), trainer.init(1))
+        iters = timed_iters + 1
+        metrics = {k: float(v) for k, v in out.metrics.items()}
+        result = {
+            "workload": name, "env_steps": ts.env_steps, "warmup_iter_s": warm_s,
+            "env_steps_per_s": timed_iters * per_iter / sum(walls),
+            "iter_wall_ms": [w * 1e3 for w in walls],
+            "phase_ms": {p: [ph[p] for ph in phases] for p in phases[0]},
+            "metrics": metrics, "test_episodes": episodes, "test_mean_reward": mean_reward,
+            "test_s": test_s,
+        }
+        if ts.env_steps != iters * per_iter or ts.sample_count != iters * per_iter:
+            raise AssertionError(f"{name}: {ts.env_steps} env steps, {ts.sample_count} samples")
+        if not all(math.isfinite(v) for v in metrics.values()) or not math.isfinite(mean_reward):
+            raise AssertionError(f"{name}: non-finite metrics {metrics} / test {mean_reward}")
+        if ts.q_table.device.type != device.type or not bool(ts.q_table.ne(0).any()):
+            raise AssertionError(f"{name}: the Q-table left the card or did not move")
+        if not (torch.equal(restored.q_table, ts.q_table)
+                and restored.sample_count == ts.sample_count):
+            raise AssertionError(f"{name}: the restored state differs from the trained one")
+        result["checkpoint_restored"] = True
+        log("phase 14 tabular workload: " + json.dumps(result))
+        results.append(result)
+
+    if cli.main(["mountaincar_baseline", "--device", str(device)]) != 0:
+        raise AssertionError("mountaincar_baseline did not return 0")
+    agent = MountainCarBaseline(device=device)
+    t0 = time.perf_counter()
+    returns, lengths = agent.eval_episodes(agent.init(0), Noise(device, 1), 10)
+    result = {"workload": "mountaincar_baseline", "episodes": 10,
+              "mean_return": float(returns.mean()), "std_return": float(returns.std(correction=0)),
+              "lengths": lengths.tolist(), "eval_s": time.perf_counter() - t0}
+    log("phase 14 tabular workload: " + json.dumps(result))
+    if not (result["mean_return"] > -200.0 and max(result["lengths"]) < 200):
+        raise AssertionError(f"the rule policy did not reach the flag: {result}")
+    results.append(result)
+    return results
+
+
+# -- phase 15: pixels and rendering ------------------------------------------------------------
+PIXEL_ENVS = 4096
+PIXEL_WARM_STEPS = 25
+FRAME_ATOL = 1e-5  # pixel coordinates near 48 carry float32 ulps of 3.8e-6
+
+
+def phase_pixels(device: torch.device, num: int = PIXEL_ENVS) -> dict:
+    """CartPolePixels card vs CPU, the conv trunk card vs CPU, the TF32 flags."""
+    from gymrl_tpu_torch.envs.pixels import CartPolePixels
+    from gymrl_tpu_torch.nn.layers import ConvEncoder
+
+    env_result = compare_env_step(CartPolePixels(), device, num, PIXEL_WARM_STEPS, FRAME_ATOL)
+    log("phase 15 pixel env: " + json.dumps(env_result))
+    gen = torch.Generator().manual_seed(4)
+    net = ConvEncoder((48, 48, 4), 256, generator=gen)
+    x = torch.rand((32, 48, 48, 4), generator=gen)
+    with torch.no_grad():
+        want = net(x)
+        got = copy.deepcopy(net).to(device)(x.to(device)).cpu()
+    flags = {"matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32}
+    result = {"env": env_result, "conv_encoder_max_abs_err": _max_err(got, want),
+              "conv_encoder_max_out": float(want.abs().max()), "tf32": flags}
+    log("phase 15 conv trunk: " + json.dumps({k: v for k, v in result.items() if k != "env"}))
+    if any(flags.values()) and device.type == "cuda":
+        raise AssertionError(f"TF32 is on: {flags}")
+    if not result["conv_encoder_max_abs_err"] <= SEQ_ATOL:
+        raise AssertionError(f"the conv trunk differs on the card: {result}")
+    return result
+
+
+def phase_render(device: torch.device, max_frames: int = 60) -> list[dict]:
+    """``render_episode``'s rollout (``episode_frames``) from card states for
+    the lander and FrozenLake; no GIF is written."""
+    import numpy as np
+
+    from gymrl_tpu_torch.run import cli
+    from gymrl_tpu_torch.run.loop import TrainLoop
+
+    results = []
+    for name, shape in (("ppo_lunarlander", (400, 600, 3)), ("qlearning_frozenlake", (192, 192, 3))):
+        trainer, algo, _ = cli.WORKLOADS[name](str(device))
+        t0 = time.perf_counter()
+        frames = TrainLoop(trainer, algo, log_metrics=False).episode_frames(
+            trainer.init(0), max_frames=max_frames)
+        result = {"workload": name, "frames": len(frames), "shape": list(frames[0].shape),
+                  "dtype": str(frames[0].dtype), "s": time.perf_counter() - t0}
+        log("phase 15 render: " + json.dumps(result))
+        if not (len(frames) >= 2 and all(f.shape == shape and f.dtype == np.uint8 for f in frames)):
+            raise AssertionError(f"{name}: frames {result}")
+        results.append(result)
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -1876,6 +2201,15 @@ def main() -> int:
     phase_mhc_pieces(device)
     phase_mhc_updates(device)
     phase_mhc_workloads(device)
+    phase_tabular_envs(device)
+    phase_tabular_steps(device)
+    phase_tabular_workloads(device)
+    phase_pixels(device)
+    phase_family_updates(device, ("dqn_cartpole_pixels",), label="phase 15 pixel update")
+    pixel = phase_workloads(device, ("dqn_cartpole_pixels",), label="phase 15 pixel workload")
+    if pixel[0]["replay_obs_dtype"] != "torch.uint8":
+        raise AssertionError(f"the pixel replay holds {pixel[0]['replay_obs_dtype']} frames")
+    phase_render(device)
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

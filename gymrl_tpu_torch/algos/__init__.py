@@ -16,6 +16,7 @@ from gymrl_tpu_torch.algos.dqn_variants import (
     DQNFamilyTrainer,
     ddqn_per_config,
     ddqn_per_duel_config,
+    dqn_pixels_config,
     noisy_dqn_config,
     noisy_dqn_flappybird_config,
     rainbow_config,
@@ -31,12 +32,20 @@ from gymrl_tpu_torch.algos.ppo_rnn import (
     ppo_rnn_flappybird_config,
     ppo_rnn_lunarlander_config,
 )
+from gymrl_tpu_torch.algos.tabular import (
+    MountainCarBaseline,
+    QLearningConfig,
+    QLearningTrainer,
+    QLearningTrainState,
+    qlearning_cliffwalking_config,
+    qlearning_frozenlake_config,
+)
 
 __all__ = [
     "IterOut", "Trainer", "masked_mean",
     "DQNConfig", "DQNTrainer",
     "DQNFamilyConfig", "DQNFamilyTrainer", "ddqn_per_config", "ddqn_per_duel_config",
-    "noisy_dqn_config", "noisy_dqn_flappybird_config", "rainbow_config",
+    "noisy_dqn_config", "noisy_dqn_flappybird_config", "rainbow_config", "dqn_pixels_config",
     "ActorCritic", "PPOConfig", "PPOTrainer", "PPOTrainState",
     "PPORNNConfig", "PPORNNTrainer", "RNNTrainState", "ppo_rnn_lunarlander_config",
     "ppo_rnn_flappybird_config", "PPGConfig", "PPGTrainer", "ppg_rnn_lunarlander_config",
@@ -44,4 +53,6 @@ __all__ = [
     "PPOLSTMConfig", "PPOLSTMTrainer", "LSTMTrainState",
     "OffPolicyConfig", "DDPGTrainer", "TD3Trainer", "SACTrainer", "DiscreteSACTrainer",
     "ddpg_config", "td3_config", "sac_config", "sac_discrete_config",
+    "QLearningConfig", "QLearningTrainer", "QLearningTrainState", "MountainCarBaseline",
+    "qlearning_frozenlake_config", "qlearning_cliffwalking_config",
 ]

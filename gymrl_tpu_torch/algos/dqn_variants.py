@@ -1,7 +1,7 @@
 """The DQN family beyond vanilla: Double / PER / Dueling / Noisy / Rainbow
 (counterpart of ``gymrl_tpu/algos/dqn_variants.py``).
 
-One parameterized trainer covers five workloads; the presets at the end pin
+One parameterized trainer covers six workloads; the presets at the end pin
 each reference script's hyperparameters, unchanged from the JAX package:
 
   * DDQN+PER          — 2x256 relu trunk, double-DQN target, stratified PER
@@ -16,6 +16,10 @@ each reference script's hyperparameters, unchanged from the JAX package:
   * Rainbow           — noisy dueling heads on a 2x256 relu trunk, PER with
     β annealed by progress, 5-step returns bootstrapped with γ^n on true
     termination, soft target τ=0.005, grad-norm clip 10, lr decay.
+  * Pixel DQN         — ``ConvEncoder`` trunk on CartPolePixels-v0 (48×48×4
+    frames), dueling double DQN, uniform replay of 16,384 with uint8 frames,
+    lr 1e-4 with the lr decay, hard sync every 1000 learn steps, 2 updates
+    per env step.
 
 One ``train_iter`` is ``steps_per_iter`` env steps, each: act (per-row
 NoisyNet noise, or ε-greedy) on the normalized obs → ``VecEnv.step`` →
@@ -26,14 +30,15 @@ forward and a μ-only target net. ``pos``/``size``, ``env_steps`` and
 ``learn_steps`` are Python ints, so every gate is decided on the host
 without waiting for the device; ``max_priority``, β, the episode and sync
 counters stay on the device. Every draw comes from ``ts.noise`` in the
-reference's order.
-
-Not ported yet: the pixel trunk (``trunk="conv"``, ``obs_uint8``) and its
-``dqn_pixels_config`` (``ROADMAP.md`` §1 item 14).
+reference's order. With ``obs_uint8`` the replay stores frames as
+``clamp(round(x·255), 0, 255)`` in uint8, quantized before the push (the
+ring's slice write would truncate floats) and divided by 255 after the
+sample.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -53,7 +58,8 @@ from gymrl_tpu_torch.core.schedules import exp_epsilon_decay, per_beta_anneal, r
 from gymrl_tpu_torch.envs.registry import make_vec
 from gymrl_tpu_torch.envs.rollout import VecState
 from gymrl_tpu_torch.nn.layers import (
-    MLP, PSCN, call, linear_layer, mlp_activation_edges, noisy_layers, pscn_activation_edges,
+    MLP, PSCN, ConvEncoder, call, linear_layer, mlp_activation_edges, noisy_layers,
+    pscn_activation_edges,
 )
 from gymrl_tpu_torch.replay.per import (
     PERState, per_init, per_push_batch, per_sample, per_update_priorities,
@@ -79,7 +85,7 @@ class DQNFamilyConfig:
     noisy_trunk: bool = False
     noisy_heads: bool = False
     trunk_layers: int = 2
-    trunk: str = "mlp"  # "mlp" | "pscn" (flappybird) | "conv" (pixel obs, not ported)
+    trunk: str = "mlp"  # "mlp" | "pscn" (flappybird) | "conv" (pixel obs)
     pscn_dim: int = 512
     trunk_dims: tuple = ()  # post-PSCN MLP widths (flappy: (512, 256, 256))
     head_hidden: int = 0  # dueling stream hidden width (flappy: 64)
@@ -108,7 +114,7 @@ class DQNFamilyConfig:
     grad_clip_norm: float | None = None
     lr_decay: bool = False  # rainbow's 0.9·lr·(1−t/T)+0.1·lr
     updates_per_step: int | None = None  # None ⇒ num_envs (ref cadence)
-    obs_uint8: bool = False  # uint8 pixel replay (not ported)
+    obs_uint8: bool = False  # uint8 pixel replay: 4× less device memory
     max_train_steps: int = 2_000_000
     solve_threshold: float | None = 495.0
 
@@ -126,7 +132,9 @@ class QNet(nn.Module):
 
       * ``"mlp"``  — ``trunk_layers`` × Dense/NoisyDense(hidden_dim) + ReLU;
       * ``"pscn"`` — PSCN(pscn_dim), then MLP(trunk_dims) with its last
-        activation (the FlappyBird network).
+        activation (the FlappyBird network);
+      * ``"conv"`` — ``ConvEncoder(obs_shape, hidden_dim)`` on ``[B, H, W, C]``
+        frames (the pixel network).
     ``head_hidden`` > 0 makes each dueling stream MLP[head_hidden, out];
     0 keeps one linear layer per stream. Flax names throughout (``fc{i}``,
     ``pscn``, ``trunk_mlp``, ``value``, ``advantage``, ``head``).
@@ -135,15 +143,19 @@ class QNet(nn.Module):
     order (``noisy_layers(net)``), or ``None`` for the μ-only forward.
     """
 
-    def __init__(self, obs_dim: int, n_actions: int, hidden_dim: int, trunk_layers: int,
-                 dueling: bool, noisy_trunk: bool, noisy_heads: bool, trunk: str = "mlp",
-                 pscn_dim: int = 512, trunk_dims: tuple = (), head_hidden: int = 0,
-                 generator: torch.Generator | None = None):
+    def __init__(self, obs_shape: tuple[int, ...], n_actions: int, hidden_dim: int,
+                 trunk_layers: int, dueling: bool, noisy_trunk: bool, noisy_heads: bool,
+                 trunk: str = "mlp", pscn_dim: int = 512, trunk_dims: tuple = (),
+                 head_hidden: int = 0, generator: torch.Generator | None = None):
         super().__init__()
         g = generator
         self.trunk, self.dueling, self.trunk_layers = trunk, dueling, trunk_layers
         linear = "noisy" if noisy_trunk else "dense"
-        if trunk == "pscn":
+        obs_dim = math.prod(obs_shape)
+        if trunk == "conv":
+            self.conv = ConvEncoder(obs_shape, hidden_dim, generator=g)
+            width = hidden_dim
+        elif trunk == "pscn":
             self.pscn = PSCN(obs_dim, pscn_dim, linear=linear, generator=g)
             width = pscn_dim
             if trunk_dims:
@@ -156,8 +168,7 @@ class QNet(nn.Module):
                 self.add_module(f"fc{i + 1}", linear_layer(width, hidden_dim, noisy_trunk, g))
                 width = hidden_dim
         else:
-            raise NotImplementedError(
-                f"trunk={trunk!r} is not ported yet (ROADMAP.md §1 item 14)")
+            raise ValueError(f"trunk must be 'mlp', 'pscn' or 'conv', got {trunk!r}")
 
         def stream(out_dim):
             if head_hidden > 0:
@@ -185,7 +196,17 @@ class QNet(nn.Module):
         heads = ([first(self.value, "value"), first(self.advantage, "advantage")]
                  if self.dueling else ["head"])
         edges = []
-        if self.trunk == "pscn":
+        if self.trunk == "conv":
+            enc = self.conv
+            for i in range(enc.n - 1):
+                width = getattr(enc, f"conv_{i}").out_channels
+                edges.append((f"conv.conv_{i}", f"conv.conv_{i + 1}", 0, width, 0))
+            # the channels-last flatten: channel c at position p is proj's input p·C + c
+            width = getattr(enc, f"conv_{enc.n - 1}").out_channels
+            edges.extend((f"conv.conv_{enc.n - 1}", "conv.proj", 0, width, p * width)
+                         for p in range(enc.out_hw[0] * enc.out_hw[1]))
+            edges.extend(("conv.proj", c, 0, enc.features, 0) for c in heads)
+        elif self.trunk == "pscn":
             after_pscn = ["trunk_mlp.layer_0"] if hasattr(self, "trunk_mlp") else heads
             edges += pscn_activation_edges("pscn", self.pscn, after_pscn)
             if hasattr(self, "trunk_mlp"):
@@ -203,7 +224,9 @@ class QNet(nn.Module):
 
     def forward(self, x, eps=None):
         eps = None if eps is None else iter(eps)
-        if self.trunk == "pscn":
+        if self.trunk == "conv":
+            x = self.conv(x)
+        elif self.trunk == "pscn":
             x = self.pscn(x, eps)
             if hasattr(self, "trunk_mlp"):
                 x = self.trunk_mlp(x, eps)
@@ -254,6 +277,12 @@ class FamilyTrainState(NamedTuple):
     beta: torch.Tensor  # f32[] on the device — PER β
 
 
+def quantize_frames(x: torch.Tensor) -> torch.Tensor:
+    """[0, 1] frames as uint8 levels: ``clamp(round(x·255), 0, 255)``
+    (round half to even, as ``jnp.round``)."""
+    return torch.clamp(torch.round(x * 255.0), 0.0, 255.0).to(torch.uint8)
+
+
 def fold_window(w: NStepWindow, gamma: float) -> Transition:
     """The n-step transition of the window's oldest entry: rewards folded
     back to front, cut at the first done; the bootstrap obs and the
@@ -274,18 +303,17 @@ def fold_window(w: NStepWindow, gamma: float) -> Transition:
 
 class DQNFamilyTrainer(Trainer):
     def __init__(self, cfg: DQNFamilyConfig, device: str | torch.device = "cuda"):
-        if cfg.trunk == "conv" or cfg.obs_uint8:
-            raise NotImplementedError(
-                "pixel observations (trunk='conv', obs_uint8) are not ported yet "
-                "(ROADMAP.md §1 item 14)")
+        if cfg.obs_uint8 and cfg.normalize_obs:
+            raise ValueError("obs_uint8 stores raw [0, 1] frames; it excludes normalize_obs")
         super().__init__(cfg, device)
         self.venv = make_vec(cfg.env_name, cfg.num_envs)
+        self.obs_shape = self.venv.env.obs_shape  # (d,) for vectors, (H, W, C) for pixels
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
     def make_net(self, generator: torch.Generator | None = None) -> QNet:
         cfg = self.cfg
-        return QNet(self.obs_dim, self.n_actions, cfg.hidden_dim, cfg.trunk_layers, cfg.dueling,
+        return QNet(self.obs_shape, self.n_actions, cfg.hidden_dim, cfg.trunk_layers, cfg.dueling,
                     cfg.noisy_trunk, cfg.noisy_heads, cfg.trunk, cfg.pscn_dim,
                     tuple(cfg.trunk_dims), cfg.head_hidden, generator)
 
@@ -297,10 +325,11 @@ class DQNFamilyTrainer(Trainer):
         cfg, dev = self.cfg, self.device
         net = self.make_net(torch.Generator().manual_seed(seed)).to(dev)
         noise = Noise(dev, seed)
-        d, b, n = self.obs_dim, cfg.num_envs, cfg.n_steps
+        d, b, n = self.obs_shape, cfg.num_envs, cfg.n_steps
+        frame = torch.zeros(d, dtype=torch.uint8 if cfg.obs_uint8 else torch.float32)
         example = Transition(
-            obs=torch.zeros(d), action=torch.zeros((), dtype=torch.int32),
-            reward=torch.zeros(()), next_obs=torch.zeros(d),
+            obs=frame, action=torch.zeros((), dtype=torch.int32),
+            reward=torch.zeros(()), next_obs=frame,
             terminated=torch.zeros(()), done=torch.zeros(()),
         )
         replay = (per_init(example, cfg.memory_capacity, dev) if cfg.use_per
@@ -308,10 +337,10 @@ class DQNFamilyTrainer(Trainer):
         window = None
         if n > 1:
             window = NStepWindow(
-                obs=torch.zeros(n, b, d, device=dev),
+                obs=torch.zeros((n, b) + d, device=dev),
                 action=torch.zeros(n, b, dtype=torch.int32, device=dev),
                 reward=torch.zeros(n, b, device=dev),
-                next_obs=torch.zeros(n, b, d, device=dev),
+                next_obs=torch.zeros((n, b) + d, device=dev),
                 terminated=torch.zeros(n, b, device=dev),
                 done=torch.zeros(n, b, device=dev),
             )
@@ -323,7 +352,7 @@ class DQNFamilyTrainer(Trainer):
             replay=replay,
             vec_state=self.venv.reset(noise),
             window=window,
-            obs_rms=rms_init((d,), dev),
+            obs_rms=rms_init(d, dev),
             reward_scaler=reward_scaler_init(b, cfg.gamma, dev),
             noise=noise,
             env_steps=0,
@@ -390,6 +419,9 @@ class DQNFamilyTrainer(Trainer):
                 window = NStepWindow(*(torch.cat([w[1:], x[None]]) for w, x in zip(window, emit)))
                 emit = fold_window(window, cfg.gamma)
                 warm = env_steps >= (cfg.n_steps - 1) * cfg.num_envs
+            if cfg.obs_uint8:  # clamp before the cast: uint8 would wrap mod 256
+                emit = emit._replace(obs=quantize_frames(emit.obs),
+                                     next_obs=quantize_frames(emit.next_obs))
             if warm:
                 replay = push(replay, emit)
             mark("act")
@@ -471,6 +503,9 @@ class DQNFamilyTrainer(Trainer):
             batch, leaf_idx, weights = per_sample(replay, noise, cfg.batch_size, beta)
         else:
             batch, weights = replay_sample(replay, noise, cfg.batch_size), None
+        if cfg.obs_uint8:  # dequantize the sampled frames back to [0, 1]
+            batch = batch._replace(obs=batch.obs.float() / 255.0,
+                                   next_obs=batch.next_obs.float() / 255.0)
         eps = (noise.noisy_update(layers, 2 if cfg.double else 1) if cfg.noisy
                else [None, None])
         delta = self._td_error(ts.params, ts.target_params, batch, eps)
@@ -557,6 +592,22 @@ def noisy_dqn_flappybird_config(**kw) -> DQNFamilyConfig:
         grad_clip_value=None, grad_clip_norm=1.0,
         normalize_obs=True, scale_rewards=True,
         solve_threshold=None,
+    )
+    base.update(kw)
+    return DQNFamilyConfig(**base)
+
+
+def dqn_pixels_config(**kw) -> DQNFamilyConfig:
+    """Pixel-observation DQN on CartPolePixels-v0, the JAX package's solving
+    defaults: the conv trunk, uint8 frames in a 16k replay, lr 1e-4 with the
+    rainbow lr decay, hard target sync every 1000 learn steps."""
+    base = dict(
+        env_name="CartPolePixels-v0", trunk="conv", hidden_dim=256,
+        gamma=0.99, lr=1e-4, double=True, dueling=True, use_per=False,
+        num_envs=32, batch_size=32, memory_capacity=16384, obs_uint8=True,
+        epsilon_decay=40_000.0, lr_decay=True, max_train_steps=3_000_000,
+        target_mode="hard_step", target_update_freq=1000,
+        grad_clip_value=None, grad_clip_norm=10.0, updates_per_step=2,
     )
     base.update(kw)
     return DQNFamilyConfig(**base)

@@ -42,14 +42,14 @@ class VecTransition(NamedTuple):
     final_length: torch.Tensor
 
 
-def _tree_select(pred: torch.Tensor, on_true, on_false):
-    """Batched element-wise select over matching NamedTuples; pred is [B]."""
-
-    def sel(a, b):
-        p = pred.reshape(pred.shape + (1,) * (a.dim() - pred.dim()))
-        return torch.where(p, a, b)
-
-    return type(on_true)(*(sel(a, b) for a, b in zip(on_true, on_false)))
+def tree_select(pred: torch.Tensor, on_true, on_false):
+    """Batched element-wise select, ``jax.tree_util.tree_map``'s way: over a
+    tensor of any rank ``[B, ...]``, or leaf by leaf over matching (nested)
+    NamedTuples; ``pred`` is ``[B]``."""
+    if isinstance(on_true, torch.Tensor):
+        p = pred.reshape(pred.shape + (1,) * (on_true.dim() - pred.dim()))
+        return torch.where(p, on_true, on_false)
+    return type(on_true)(*(tree_select(pred, a, b) for a, b in zip(on_true, on_false)))
 
 
 class VecEnv:
@@ -77,8 +77,8 @@ class VecEnv:
         ep_length = vstate.ep_length + 1
 
         reset_state, reset_obs = self.env.reset_batch(self.params, noise, self.num_envs)
-        new_env_state = _tree_select(done, reset_state, sr.state)
-        new_obs = torch.where(done[:, None], reset_obs, sr.obs)
+        new_env_state = tree_select(done, reset_state, sr.state)
+        new_obs = tree_select(done, reset_obs, sr.obs)
 
         transition = VecTransition(
             obs=vstate.obs,

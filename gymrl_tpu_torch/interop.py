@@ -2,7 +2,8 @@
 
 Numpy in, numpy or torch out; nothing here imports JAX. Flax ``Dense``
 kernels are ``[in, out]`` and torch weights ``[out, in]``, so
-``weight = kernel.T``; module names map one to one, nested modules by
+``weight = kernel.T``; flax ``Conv`` kernels are HWIO and the port's
+``Conv`` weights OIHW; module names map one to one, nested modules by
 dotted path (``{"q1": {"fc1": ...}}`` → ``q1.fc1.weight``). A vector
 raveled by ``jax.flatten_util.ravel_pytree`` (the JAX package's flat
 optimizer keeps its Adam moments so) is split with ``unravel_flax``, which
@@ -34,10 +35,11 @@ def _tensor(x, device: str | torch.device = "cpu") -> torch.Tensor:
 def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
     """A flax params tree (``{"params": {...}}`` or its inner dict) of
     numpy-convertible leaves → a torch ``state_dict``. A ``kernel`` leaf is a
-    ``Dense`` weight (transposed); every other leaf keeps its name and
-    layout (a bias, ``NoisyDense``'s ``kernel_mu``/``kernel_sigma``/
-    ``bias_mu``/``bias_sigma``, ``PReLU``'s 0-dim ``negative_slope``);
-    a dict is a module, by dotted path."""
+    ``Dense`` weight (transposed) or a ``Conv`` weight (HWIO → OIHW); every
+    other leaf keeps its name and layout (a bias, ``NoisyDense``'s and
+    ``NoisyConv2d``'s ``kernel_mu``/``kernel_sigma``/``bias_mu``/
+    ``bias_sigma``, ``PReLU``'s 0-dim ``negative_slope``, ``LayerNorm``'s
+    ``scale``); a dict is a module, by dotted path."""
     state: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, prefix: str) -> None:
@@ -45,8 +47,9 @@ def params_from_flax(tree: Mapping) -> dict[str, torch.Tensor]:
             if isinstance(child, Mapping):
                 walk(child, f"{prefix}{name}.")
             elif name == "kernel":
-                state[f"{prefix}weight"] = torch.from_numpy(
-                    np.array(child, np.float32).T.copy())
+                k = np.array(child, np.float32)
+                k = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+                state[f"{prefix}weight"] = torch.from_numpy(k.copy())
             else:
                 state[f"{prefix}{name}"] = torch.from_numpy(np.array(child, np.float32))
 
@@ -64,7 +67,7 @@ def params_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
             node = node.setdefault(name, {})
         arr = value.detach().cpu().numpy()
         if kind == "weight":
-            node["kernel"] = arr.T.copy()
+            node["kernel"] = (arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T).copy()
         else:
             node[kind] = arr.copy()
     return {"params": root}
@@ -164,14 +167,22 @@ def adam_state_to_flax(opt: torch.optim.Adam, net: nn.Module, flat: bool):
     return count, mu, nu
 
 
-def state_from_numpy(state: Any, cls: type, device: str | torch.device = "cpu"):
+def state_from_numpy(state: Any, cls: type | tuple, device: str | torch.device = "cpu"):
     """A batched env state (a NamedTuple or mapping of numpy arrays with the
-    reference's field names) → the port's state class ``cls``."""
-    return cls(**{f: _tensor(_field(state, f), device) for f in cls._fields})
+    reference's field names) → the port's state class ``cls``. For a state
+    that nests another (``PixelState`` holds its engine's), ``cls`` is a
+    port state of that structure, whose nested classes the result takes."""
+    if not isinstance(cls, tuple):
+        return cls(**{f: _tensor(_field(state, f), device) for f in cls._fields})
+    return type(cls)(**{
+        f: (state_from_numpy(_field(state, f), like, device) if isinstance(like, tuple)
+            else _tensor(_field(state, f), device))
+        for f, like in zip(cls._fields, cls)})
 
 
-def state_to_numpy(state: Any) -> dict[str, np.ndarray]:
-    return {f: getattr(state, f).detach().cpu().numpy() for f in state._fields}
+def state_to_numpy(state: Any) -> dict[str, Any]:
+    return {f: state_to_numpy(x) if isinstance(x, tuple) else x.detach().cpu().numpy()
+            for f, x in zip(state._fields, state)}
 
 
 def lander_state_from_numpy(state: Any, device: str | torch.device = "cpu") -> LunarLanderState:
@@ -179,9 +190,9 @@ def lander_state_from_numpy(state: Any, device: str | torch.device = "cpu") -> L
 
 
 def vec_state_from_numpy(vstate: Any, device: str | torch.device = "cpu",
-                         state_cls: type = LunarLanderState) -> VecState:
+                         state_cls: type | tuple = LunarLanderState) -> VecState:
     """A reference ``VecState`` of numpy arrays → the port's; ``state_cls``
-    is the env's state class."""
+    is the env's state class, or a port env state (``state_from_numpy``)."""
     return VecState(
         env_state=state_from_numpy(_field(vstate, "env_state"), state_cls, device),
         **{f: _tensor(_field(vstate, f), device) for f in ("obs", "ep_return", "ep_length")},
@@ -230,7 +241,8 @@ def _norm_stats(ts, ref_ts, dev) -> dict:
 def train_state_from_reference(trainer, ref_ts: Any, noise=None):
     """A whole ``jax.device_get``-ed ``DQNTrainState``,
     ``OffPolicyTrainState``, ``FamilyTrainState``, ``RNNTrainState``,
-    ``FullTrainState`` or ``LSTMTrainState`` → the port trainer's state:
+    ``FullTrainState``, ``LSTMTrainState`` or ``QLearningTrainState`` → the
+    port trainer's state (a Q-table with its counters, or):
     nets, targets and Adam states (a raveled flat optimizer's too), replay
     contents (and the PER sum-tree) with ``pos`` and ``size``, the env
     batch, the n-step window, the recurrent hidden, normalization
@@ -239,6 +251,12 @@ def train_state_from_reference(trainer, ref_ts: Any, noise=None):
     the per-env keys of a FlappyBird batch, which are dropped."""
     ts = trainer.init(0)
     dev = trainer.device
+    vec_state = vec_state_from_numpy(ref_ts.vec_state, dev, ts.vec_state.env_state)
+    noise = ts.noise if noise is None else noise
+    if hasattr(ref_ts, "q_table"):  # tabular Q-learning
+        return ts._replace(q_table=_tensor(ref_ts.q_table, dev), vec_state=vec_state,
+                           noise=noise, env_steps=int(ref_ts.env_steps),
+                           sample_count=int(ref_ts.sample_count))
     if not hasattr(ref_ts, "replay"):  # the on-policy trainers
         ts.params.load_state_dict(params_from_flax(ref_ts.params))
         load_adam_state(ts.opt_state, ts.params, ref_ts.opt_state)
@@ -247,17 +265,11 @@ def train_state_from_reference(trainer, ref_ts: Any, noise=None):
             extra["hidden"] = _tensor(ref_ts.hidden, dev)
         if hasattr(ref_ts, "reward_scaler"):
             extra.update(_norm_stats(ts, ref_ts, dev))
-        return ts._replace(
-            vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
-            noise=ts.noise if noise is None else noise,
-            env_steps=int(ref_ts.env_steps),
-            **extra,
-        )
+        return ts._replace(vec_state=vec_state, noise=noise, env_steps=int(ref_ts.env_steps),
+                           **extra)
     common = dict(
         replay=replay_from_numpy(ref_ts.replay, type(ts.replay.data), dev),
-        vec_state=vec_state_from_numpy(ref_ts.vec_state, dev, type(ts.vec_state.env_state)),
-        noise=ts.noise if noise is None else noise,
-        env_steps=int(ref_ts.env_steps),
+        vec_state=vec_state, noise=noise, env_steps=int(ref_ts.env_steps),
     )
     if hasattr(ref_ts, "target_params"):  # DQN and the DQN family
         ts.params.load_state_dict(params_from_flax(ref_ts.params))

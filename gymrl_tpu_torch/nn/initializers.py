@@ -4,7 +4,7 @@ The reference's ``initialize_weights`` scheme: kaiming-uniform (default,
 leaky_relu nonlinearity), xavier-uniform, orthogonal with gain √2; biases
 zero. Per-layer orthogonal gains (policy head 0.01, value head 1.0) are
 passed explicitly. flax's ``lecun_normal`` serves the GRU cell's input
-layers.
+layers and the conv layers.
 
 Each initializer is ``init(weight, generator)`` and fills a torch weight in
 its ``[out, in]`` layout in place. The JAX package fills flax kernels laid
@@ -60,10 +60,10 @@ def lecun_normal() -> Initializer:
     """flax's ``lecun_normal``, ``variance_scaling(1.0, "fan_in",
     "truncated_normal")``: a normal truncated to ±2σ, with σ rescaled by
     the truncation's std (0.8796...) so the variance is 1/fan_in. The
-    default kernel init of flax's ``GRUCell`` input layers."""
+    default kernel init of flax's ``GRUCell`` input layers and ``Conv``."""
 
     def init(weight, generator=None):
-        fan_in = weight.shape[1] if weight.dim() >= 2 else 1
+        fan_in = math.prod(weight.shape[1:])  # in, or in·kh·kw of an OIHW conv kernel
         std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
         return torch.nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std,
                                            generator=generator)

@@ -1,11 +1,20 @@
 """Layers (counterpart of ``gymrl_tpu/nn/layers.py``): ``Dense``, ``PReLU``,
-``NoisyDense``, ``MLP``, ``PSCN`` and ``RMSNorm``.
+``NoisyDense``, ``LayerNorm``, ``MLP``, ``PSCN``, ``RMSNorm``, the conv
+layers (``Conv``, ``ConvEncoder``, ``DSConv``, ``NoisyConv2d``),
+``positional_encoding`` and ``MultiHeadAttention``.
 
 Parameter and submodule names are the flax ones (``layer_{i}``, ``act_{i}``,
 ``mlp_{i}``, ``kernel_mu``, ``negative_slope``, ...), so
 weights map across by name (``interop.params_from_flax``). ``Dense`` keeps
 torch's ``[out, in]`` weight; ``NoisyDense`` keeps flax's ``[in, out]``
 kernels, which its per-row form multiplies as they are.
+
+The conv layers take and give channels-last ``[N, H, W, C]`` tensors, as
+flax's do, so a flattened conv output has flax's order and the ``Dense``
+after it maps across unchanged. ``Conv`` keeps torch's OIHW weight (flax's
+HWIO kernel, transposed by ``interop``) and runs ``conv2d`` on the
+channels-last tensor viewed as NCHW; ``NoisyConv2d`` keeps flax's HWIO
+``kernel_mu``/``kernel_sigma``, as ``NoisyDense`` keeps its layout.
 
 NoisyNet noise is an argument, never drawn inside a layer: a noisy forward
 takes one ``(eps_in, eps_out)`` pair per noisy layer, in call order (the
@@ -26,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Iterator, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -126,15 +136,30 @@ def call(module: nn.Module, x, eps: NoiseIter):
     return module(x, next(eps) if isinstance(module, NoisyDense) else eps)
 
 
+class LayerNorm(nn.Module):
+    """flax's ``LayerNorm``: parameters ``scale`` (ones) and ``bias`` (zeros),
+    eps 1e-6 (torch's default is 1e-5)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        return nn.functional.layer_norm(x, x.shape[-1:], self.scale, self.bias, self.eps)
+
+
 class MLP(nn.Module):
-    """Linear + PReLU per layer (reference utils/model.py:26-52).
+    """Linear (+ LayerNorm) + PReLU per layer (reference utils/model.py:26-52).
     ``dims`` excludes the input width; ``linear="noisy"`` makes every layer
     a ``NoisyDense``; the activation follows every layer but the last, and
-    the last too with ``last_act``. (The reference's other activations and
-    its LayerNorm option have no caller.)"""
+    the last too with ``last_act``; ``use_norm`` puts a ``LayerNorm``
+    (``norm_{i}``) before each activation. (The reference's other
+    activations have no caller.)"""
 
     def __init__(self, in_dim: int, dims: Sequence[int], last_act: bool = False,
-                 linear: str = "dense",
+                 linear: str = "dense", use_norm: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
         if not dims:
@@ -142,11 +167,13 @@ class MLP(nn.Module):
         if linear not in ("dense", "noisy"):
             raise ValueError(f"linear must be 'dense' or 'noisy', got {linear!r}")
         self.n = len(dims)
-        self.last_act = last_act
+        self.last_act, self.use_norm = last_act, use_norm
         for i, feat in enumerate(dims):
             self.add_module(f"layer_{i}", linear_layer(in_dim, feat, linear == "noisy",
                                                        generator))
             if i < self.n - 1 or last_act:
+                if use_norm:
+                    self.add_module(f"norm_{i}", LayerNorm(feat))
                 self.add_module(f"act_{i}", PReLU())
             in_dim = feat
         self.out_dim = in_dim
@@ -155,6 +182,8 @@ class MLP(nn.Module):
         for i in range(self.n):
             x = call(getattr(self, f"layer_{i}"), x, eps)
             if i < self.n - 1 or self.last_act:
+                if self.use_norm:
+                    x = getattr(self, f"norm_{i}")(x)
                 x = getattr(self, f"act_{i}")(x)
         return x
 
@@ -207,6 +236,157 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         rms = torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + self.eps)
         return (x32 * rms).to(x.dtype) * self.scale.to(x.dtype)
+
+
+class Conv(nn.Module):
+    """flax's ``nn.Conv`` with ``VALID`` padding on ``[N, H, W, C]``: an OIHW
+    ``weight`` (``lecun_normal``, fan-in ``in/groups·kh·kw``) and a zero
+    ``bias``. ``groups`` is flax's ``feature_group_count``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int | tuple[int, int],
+                 stride: int | tuple[int, int] = 1, groups: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size = (kh, kw)
+        self.stride = (stride, stride) if isinstance(stride, int) else tuple(stride)
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels // groups, kh, kw))
+        gl_init.lecun_normal()(self.weight, generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def out_hw(self, h: int, w: int) -> tuple[int, int]:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        return (h - kh) // sh + 1, (w - kw) // sw + 1
+
+    def forward(self, x):
+        y = nn.functional.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, self.stride,
+                                 groups=self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvEncoder(nn.Module):
+    """The conv trunk for pixel observations, ``[..., H, W, C] → [...,
+    features]`` (reference image path, utils/runner.py:57-66): Nature-DQN
+    style strided ``Conv`` + ReLU layers (``conv_{i}``), a channels-last
+    flatten, ``Dense`` ``proj`` + ReLU. Leading dims are arbitrary, as in
+    flax. ``in_shape`` is ``(H, W, C)``: the flatten's width follows from it
+    (48×48 → 11 → 4 → 2, so 2·2·32 = 128 for the defaults)."""
+
+    def __init__(self, in_shape: Sequence[int], features: int = 256,
+                 channels: Sequence[int] = (16, 32, 32), kernels: Sequence[int] = (8, 4, 3),
+                 strides: Sequence[int] = (4, 2, 1), generator: torch.Generator | None = None):
+        super().__init__()
+        h, w, c = in_shape
+        self.n, self.features = len(channels), features
+        for i, (ch, k, s) in enumerate(zip(channels, kernels, strides)):
+            conv = Conv(c, ch, k, s, generator=generator)
+            self.add_module(f"conv_{i}", conv)
+            (h, w), c = conv.out_hw(h, w), ch
+        self.out_hw = (h, w)
+        self.proj = Dense(h * w * c, features, generator=generator)
+
+    def forward(self, x):
+        lead = x.shape[:-3]
+        x = x.reshape((-1,) + tuple(x.shape[-3:]))
+        for i in range(self.n):
+            x = torch.relu(getattr(self, f"conv_{i}")(x))
+        x = torch.relu(self.proj(x.reshape(x.shape[0], -1)))
+        return x.reshape(lead + (self.features,))
+
+
+class DSConv(nn.Module):
+    """Depthwise-separable conv (utils/model.py:112-122): a ``depthwise``
+    ``Conv`` with one group per input channel, then a 1×1 ``pointwise``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: tuple[int, int] = (3, 3),
+                 strides: tuple[int, int] = (1, 1), generator: torch.Generator | None = None):
+        super().__init__()
+        self.depthwise = Conv(in_channels, in_channels, kernel_size, strides, groups=in_channels,
+                              generator=generator)
+        self.pointwise = Conv(in_channels, features, 1, generator=generator)
+
+    def forward(self, x):
+        return self.pointwise(self.depthwise(x))
+
+
+class NoisyConv2d(nn.Module):
+    """Factorized-Gaussian noisy convolution (utils/model.py:126-184; no
+    workload uses it). μ ~ U(±1/√fan_in), σ₀ = 0.5/√fan with fan_in =
+    in·kh·kw; HWIO ``kernel_mu``/``kernel_sigma``. ``eps=None`` is the
+    μ-only forward; else ``eps = (eps_in[in·kh·kw], eps_out[out])``, one
+    ``Noise`` draw of an ``(in·kh·kw, out)`` noisy layer, and the kernel is
+    ``μ + σ ∘ (ε_in ⊗ ε_out)`` with ε_in laid out as (kh, kw, in)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: tuple[int, int] = (3, 3),
+                 strides: tuple[int, int] = (1, 1), sigma_init: float = 0.5,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride = tuple(strides)
+        self.fan_in, self.features = in_channels * kh * kw, features
+        mu_range = 1.0 / math.sqrt(self.fan_in)
+        shape = (kh, kw, in_channels, features)
+        self.kernel_mu = nn.Parameter(
+            torch.empty(shape).uniform_(-mu_range, mu_range, generator=generator))
+        self.kernel_sigma = nn.Parameter(torch.full(shape, sigma_init / math.sqrt(self.fan_in)))
+        self.bias_mu = nn.Parameter(
+            torch.empty(features).uniform_(-mu_range, mu_range, generator=generator))
+        self.bias_sigma = nn.Parameter(torch.full((features,), sigma_init / math.sqrt(features)))
+
+    def forward(self, x, eps: tuple[torch.Tensor, torch.Tensor] | None = None):
+        if eps is None:
+            w, b = self.kernel_mu, self.bias_mu
+        else:
+            eps_in, eps_out = eps
+            w = self.kernel_mu + self.kernel_sigma * (
+                eps_in.reshape(self.kernel_mu.shape[:3] + (1,)) * eps_out)
+            b = self.bias_mu + self.bias_sigma * eps_out
+        y = nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), None, self.stride)
+        return y.permute(0, 2, 3, 1) + b
+
+
+def positional_encoding(seq_len: int, d_model: int) -> torch.Tensor:
+    """Sinusoidal table ``[seq_len, d_model]`` (utils/model.py:189-211),
+    computed in numpy float32 as the JAX package computes it."""
+    position = np.arange(seq_len)[:, None].astype(np.float32)
+    div_term = np.exp(np.arange(0, d_model, 2).astype(np.float32)
+                      * (-np.log(10000.0) / d_model))
+    pe = np.zeros((seq_len, d_model), np.float32)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return torch.from_numpy(pe)
+
+
+class MultiHeadAttention(nn.Module):
+    """Einsum attention (utils/model.py:215-251; no workload uses it): the
+    ``values``/``keys``/``queries`` projections are one bias-free ``Dense``
+    of ``head_dim`` shared by the heads, then softmax(q·kᵀ/√head_dim) with
+    ``mask == 0`` set to −1e20, and ``fc_out``."""
+
+    def __init__(self, embed_size: int, num_heads: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if embed_size % num_heads:
+            raise ValueError(f"embed_size {embed_size} is not a multiple of {num_heads} heads")
+        self.embed_size, self.num_heads = embed_size, num_heads
+        self.head_dim = hd = embed_size // num_heads
+        for name in ("values", "keys", "queries"):
+            self.add_module(name, Dense(hd, hd, bias=False, generator=generator))
+        self.fc_out = Dense(embed_size, embed_size, generator=generator)
+
+    def forward(self, values, keys, query, mask=None):
+        n, hd = query.shape[0], self.head_dim
+        values = self.values(values.reshape(n, values.shape[1], self.num_heads, hd))
+        keys = self.keys(keys.reshape(n, keys.shape[1], self.num_heads, hd))
+        queries = self.queries(query.reshape(n, query.shape[1], self.num_heads, hd))
+        energy = torch.einsum("nqhd,nkhd->nhqk", queries, keys)
+        if mask is not None:
+            energy = torch.where(mask == 0, -1e20, energy)
+        attention = torch.softmax(energy / math.sqrt(hd), dim=3)
+        out = torch.einsum("nhql,nlhd->nqhd", attention, values)
+        return self.fc_out(out.reshape(n, query.shape[1], self.embed_size))
 
 
 Edge = tuple[str, str, int, int, int]

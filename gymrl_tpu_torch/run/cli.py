@@ -1,9 +1,10 @@
 """Workload entry points — ``python -m gymrl_tpu_torch.run.cli <workload> [--device D]``.
 
-Counterpart of ``gymrl_tpu/run/cli.py`` for the workloads the port has so
-far (17 of its 21). ``--device`` defaults to ``cuda``; pass ``--device cpu``
-to run on the CPU. Ctrl+C stops training gracefully and runs the final
-evaluation.
+Counterpart of ``gymrl_tpu/run/cli.py``, with all 21 of its workloads.
+``--device`` defaults to ``cuda``; pass ``--device cpu`` to run on the CPU.
+Ctrl+C stops training gracefully and runs the final evaluation. A workload
+that trains nothing (``mountaincar_baseline``) runs itself and returns
+``None``; ``main`` then returns 0 without a ``TrainLoop``.
 """
 
 from __future__ import annotations
@@ -53,6 +54,33 @@ def _rainbow_dqn_cartpole(device: str):
 def _noisy_dqn_flappybird(device: str):
     from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, noisy_dqn_flappybird_config
     return DQNFamilyTrainer(noisy_dqn_flappybird_config(), device=device), "NoisyDQN", None
+
+
+def _dqn_cartpole_pixels(device: str):
+    from gymrl_tpu_torch.algos.dqn_variants import DQNFamilyTrainer, dqn_pixels_config
+    return DQNFamilyTrainer(dqn_pixels_config(), device=device), "DQN_Pixels", 495.0
+
+
+def _qlearning_frozenlake(device: str):
+    from gymrl_tpu_torch.algos.tabular import QLearningTrainer, qlearning_frozenlake_config
+    return QLearningTrainer(qlearning_frozenlake_config(), device=device), "QLearning", None
+
+
+def _qlearning_cliffwalking(device: str):
+    from gymrl_tpu_torch.algos.tabular import QLearningTrainer, qlearning_cliffwalking_config
+    return QLearningTrainer(qlearning_cliffwalking_config(), device=device), "QLearning", None
+
+
+def _mountaincar_baseline(device: str):
+    """Ten deterministic episodes of the rule policy, logged; trains nothing."""
+    from gymrl_tpu_torch.algos.tabular import MountainCarBaseline
+    from gymrl_tpu_torch.core.noise import Noise
+
+    agent = MountainCarBaseline(device=device)
+    returns, _ = agent.eval_episodes(agent.init(0), Noise(agent.device, 1), 10)
+    logger.info(f"rule-based MountainCar: {float(returns.mean()):.1f} "
+                f"± {float(returns.std(correction=0)):.1f} over 10 episodes")
+    return None
 
 
 def _ppo_lunarlander(device: str):
@@ -118,6 +146,7 @@ WORKLOADS = {
     "noisy_dqn_cartpole": _noisy_dqn_cartpole,
     "rainbow_dqn_cartpole": _rainbow_dqn_cartpole,
     "noisy_dqn_flappybird": _noisy_dqn_flappybird,
+    "dqn_cartpole_pixels": _dqn_cartpole_pixels,
     "ppo_lunarlander": _ppo_lunarlander,
     "ppo_cartpole": _ppo_cartpole,
     "ppo_rnn_lunarlander": _ppo_rnn_lunarlander,
@@ -129,6 +158,9 @@ WORKLOADS = {
     "sac_cartpole": _sac_cartpole,
     "td3_pendulum": _td3_pendulum,
     "ddpg_pendulum": _ddpg_pendulum,
+    "qlearning_frozenlake": _qlearning_frozenlake,
+    "qlearning_cliffwalking": _qlearning_cliffwalking,
+    "mountaincar_baseline": _mountaincar_baseline,
 }
 
 
@@ -143,7 +175,10 @@ def main(argv=None):
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
 
-    trainer, algo, solve = WORKLOADS[args.workload](args.device)
+    built = WORKLOADS[args.workload](args.device)
+    if built is None:  # a baseline-style workload has run itself
+        return 0
+    trainer, algo, solve = built
     show_config(trainer.cfg, algo)
     loop = TrainLoop(trainer, algo, save_every=100_000, eval_every=100_000)
     ts, stats = loop.train(trainer.cfg.max_train_steps, solve_threshold=solve)

@@ -12,12 +12,14 @@ The reference UX, unchanged:
     catches KeyboardInterrupt and returns; callers then run ``test()``.
 
 Per iteration the host fetches only the small episode-stat arrays; the
-metrics dict is fetched at console-log points. Rendering an episode
-(``render_episode``) is not ported yet.
+metrics dict is fetched at console-log points. ``test(render=True)`` also
+renders one deterministic episode to ``./exp/renders/{algo}_{env}.gif``
+(the reference's human-rendered test episode, headless).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from gymrl_tpu_torch.core.noise import Noise
+from gymrl_tpu_torch.envs.render import RENDERERS, render, save_gif, state_row
 from gymrl_tpu_torch.utils.checkpoint import checkpoint_path, restore_checkpoint, save_checkpoint
 from gymrl_tpu_torch.utils.logging import MetricsWriter, get_logger
 
@@ -151,11 +154,48 @@ class TrainLoop:
         returns, lengths = self.trainer.eval_episodes(ts, noise, episodes)
         return float(returns.mean()), float(lengths.float().mean())
 
-    def test(self, ts, episodes: int = 5):
-        """Reference ``test()``: a deterministic evaluation, logged."""
+    def test(self, ts, episodes: int = 5, render: bool = False):
+        """Reference ``test()``: a deterministic evaluation, logged, and with
+        ``render`` one rendered episode saved as a GIF."""
         mean_r, mean_len = self.evaluate(ts, episodes)
         logger.info(f"test: mean reward {mean_r:.1f}, mean length {mean_len:.0f}")
+        if render:
+            path = self.render_episode(ts)
+            if path:
+                logger.info(f"render saved to {path}")
         return mean_r
+
+    @torch.no_grad()
+    def episode_frames(self, ts, seed: int = 0, max_frames: int = 1000):
+        """One deterministic episode at B=1 without autoreset, the policy's
+        carry (a recurrent hidden) threaded through it: the reset frame and
+        one per step, as ``uint8[H, W, 3]``; ``None`` when no renderer is
+        registered for the env."""
+        env, params = self.trainer.venv.env, self.trainer.venv.params
+        if env.name not in RENDERERS:
+            logger.info(f"no renderer registered for {env.name}")
+            return None
+        noise = Noise(self.trainer.device, seed)
+        state, obs = env.reset_batch(params, noise, 1)
+        frames = [render(env, state_row(state))]
+        carry = self.trainer.policy_reset(1)
+        for _ in range(min(max_frames, env.max_steps)):
+            carry, action = self.trainer.policy_step(ts, carry, obs, noise, deterministic=True)
+            sr = env.step_batch(params, state, action, noise)
+            state, obs = sr.state, sr.obs
+            frames.append(render(env, state_row(state)))
+            if bool(sr.terminated[0] | sr.truncated[0]):
+                break
+        return frames
+
+    def render_episode(self, ts, seed: int = 0, max_frames: int = 1000):
+        """``episode_frames`` saved as ``./exp/renders/{algo}_{env}.gif``;
+        returns its path, or ``None`` when the env has no renderer."""
+        frames = self.episode_frames(ts, seed, max_frames)
+        if frames is None:
+            return None
+        os.makedirs("./exp/renders", exist_ok=True)
+        return save_gif(frames, f"./exp/renders/{self.algo_name}_{self.env_name}.gif")
 
 
 def run_benchmark(trainer_cls, cfg, algo_name: str, *, seed: int = 0,

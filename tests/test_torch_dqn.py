@@ -369,7 +369,7 @@ def test_registry_makes_cartpole_and_pendulum():
     assert (cp.n_actions, cp.obs_dim, cp.max_steps) == (2, 4, 500)
     assert (pd.act_dim, pd.action_bound, pd.obs_dim, pd.max_steps) == (1, 2.0, 3, 200)
     with pytest.raises(KeyError, match="CartPole-v1"):
-        make("CartPolePixels-v0")
+        make("Acrobot-v1")
 
 
 # -- schedules ----------------------------------------------------------------------

@@ -727,10 +727,16 @@ def test_family_checkpoint_round_trip_and_mismatch_raises(preset, tmp_path):
 
 
 def test_pixel_trunk_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        V.DQNFamilyTrainer(V.DQNFamilyConfig(trunk="conv"), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        V.DQNFamilyTrainer(V.DQNFamilyConfig(obs_uint8=True), device="cpu")
+    """The pixel options, which raised before the pixel slice, now build
+    (tests/test_torch_pixels_render.py holds them to the JAX package); what
+    the JAX package refuses is refused."""
+    trainer = V.DQNFamilyTrainer(V.dqn_pixels_config(memory_capacity=8), device="cpu")
+    assert trainer.make_net().conv.proj.in_features == 2 * 2 * 32
+    assert trainer.init(0).replay.data.obs.dtype == torch.uint8
+    with pytest.raises(ValueError, match="trunk"):
+        V.DQNFamilyTrainer(V.DQNFamilyConfig(trunk="cnn"), device="cpu").make_net()
+    with pytest.raises(ValueError, match="normalize_obs"):
+        V.DQNFamilyTrainer(V.DQNFamilyConfig(obs_uint8=True, normalize_obs=True), device="cpu")
 
 
 @pytest.mark.parametrize("preset", sorted(PRESETS))

@@ -327,6 +327,6 @@ def test_registry_makes_lunarlander_and_lists_what_it_has():
     venv = make_vec("LunarLander-v3", 5)
     assert venv.num_envs == 5 and venv.params == LunarLanderParams()
     with pytest.raises(KeyError, match="LunarLander-v3"):
-        make("MountainCar-v0")
+        make("Acrobot-v1")
     cont = make("LunarLander-v3", continuous=True)
     assert cont.act_dim == 2 and cont.action_bound == 1.0 and cont.n_actions is None

@@ -37,6 +37,7 @@ from gymrl_tpu.algos.ppo import PPOTrainer as RefTrainer
 from gymrl_tpu.algos.ppo import PPOTrainState as RefTrainState
 from gymrl_tpu.core.gae import compute_gae as ref_compute_gae
 from gymrl_tpu.core.gae import standardize as ref_standardize
+from gymrl_tpu.run import cli as ref_cli
 from gymrl_tpu_torch import interop
 from gymrl_tpu_torch.algos.base import adam, clip_grads_by_global_norm_
 from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
@@ -393,7 +394,7 @@ def test_cli_workload_trains_in_train_loop_on_cpu(tmp_path, monkeypatch, capsys)
     monkeypatch.chdir(tmp_path)
     assert cli.main([]) == 1
     usage = capsys.readouterr().out
-    assert "ppo_lunarlander" in usage and "qlearning_frozenlake" not in usage
+    assert all(name in usage for name in ref_cli.WORKLOADS) and len(ref_cli.WORKLOADS) == 21
 
     trainer, algo, solve = cli.WORKLOADS["ppo_lunarlander"]("cpu")
     assert (algo, solve, trainer.device) == ("PPO", 200.0, torch.device("cpu"))
