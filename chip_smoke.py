@@ -3,8 +3,9 @@
     python chip_smoke.py
 
 Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
-ported family (off-policy, DQN, recurrent, mHC, tabular, pixels) on the card
-and checks what comes out. Every phase raises on failure; the script exits 0
+ported family (off-policy, DQN, recurrent, mHC, tabular, pixels) on the card,
+then the distributed layer and the profiling hooks, and checks what comes
+out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
   0. Device: a CUDA device must be present; prints ``nvidia-smi``'s name
@@ -169,6 +170,40 @@ only if all of them pass.
      rollout (``TrainLoop.episode_frames``, no GIF: the card's machine has
      no PIL) of a lander and a FrozenLake episode from card states, every
      frame uint8 of the renderer's shape.
+ 16. The distributed layer (``gymrl_tpu_torch/distributed``), every world
+     in child processes (``distributed/launch.py``) with a deadline. (a) A
+     world of one on NCCL on ``cuda:0``: ``dryrun_multichip(1)`` (PPO,
+     Rainbow, SAC and PPO-LSTM at the JAX dry run's sizes), then one
+     bench-config iteration unsharded and one under ``make_mesh(1, 1)``,
+     which must be equal to the bit (every state tensor, the metrics, the
+     episodes). (b) Two ranks sharing the card over gloo with CUDA tensors
+     (NCCL refuses two ranks on one device), one world for all cases: the
+     bench config on two data ranks; ``ppo_lunarlander``'s preset with its
+     trunk split over two model ranks (hidden 256); ``rainbow_dqn_cartpole``,
+     ``sac_pendulum`` and ``ppo_lstm_lunarlander`` on two data ranks, the
+     two off-policy presets' iterations cut to end with their first env
+     step that updates (16 updates). Uncut, neither can be held: Rainbow's
+     unsharded iteration (208 updates) does not repeat itself on the card
+     (its PER write-back is an ``index_add_``, atomic adds whose order
+     varies; SAC, which has none, repeats to the bit), and SAC's sharded
+     iteration (400 updates) drifts to 7.1e-2 in the params and 3.9e-2 in
+     the env states, as Adam's eps turns rounding into ±lr steps and the
+     changed actions into other transitions (``PERF.md``). Each sharded
+     iteration is held against the unsharded one on the card under
+     ``_dist_check``'s rules (the env batch, episodes, noise stream and
+     replay transitions exact; every param entry to 1e-5, the bf16 bench
+     config's to 2·lr·steps·2^-8; the metrics to rtol 1e-5, the bench
+     config's to 2^-8). (c) The checkpoint saved under (b)'s
+     trunk split holds whole tensors and restores into a fresh state of the
+     same mesh, equal to the bit. Prints the backends, the world, each
+     mesh, each case's largest errors beside their bounds and the sharded
+     and unsharded wall times (the card's own, not a claim).
+ 17. Profile: one bench-config and one ``ppo_lunarlander`` iteration under
+     ``utils.profiling.trace`` (a Chrome trace on disk): CUDA kernel
+     launches per iteration, summed kernel time and the busy share (the
+     union of kernel intervals over the iteration's wall time, traced and
+     untraced); ``Throughput`` over two untraced bench iterations must read
+     within 10% of the wall-clock rate.
   Last, the kernels: the port has no hand-written kernel (the JAX package
   has no Pallas kernel to port), so the kernel list is empty.
 
@@ -2171,6 +2206,333 @@ def phase_render(device: torch.device, max_frames: int = 60) -> list[dict]:
     return results
 
 
+# -- phase 16: the distributed layer ---------------------------------------------
+# (case, n_data, n_model): the bench config on two data ranks; ppo_lunarlander's
+# preset with its trunk split over two model ranks; three presets on two data
+# ranks. All of them in one world of two processes sharing the card.
+DIST_CASES = (("bench", 2, 1), ("ppo_lunarlander", 1, 2), ("rainbow_dqn_cartpole", 2, 1),
+              ("sac_pendulum", 2, 1), ("ppo_lstm_lunarlander", 2, 1))
+DIST_TIMEOUT_S = 600.0
+
+
+def _dist_trainer(name: str, device, mesh=None, first_update: bool = False):
+    """Phase 16's case ``name``: the bench config or a CLI workload's preset.
+    ``first_update`` cuts an off-policy preset's iteration to end with its
+    first env step that updates (all widths and the cadence unchanged)."""
+    import dataclasses
+
+    if name == "bench":
+        from gymrl_tpu_torch.algos.ppo import PPOTrainer
+        from gymrl_tpu_torch.bench import BENCH_CONFIG
+        return PPOTrainer(BENCH_CONFIG, device=device, mesh=mesh)
+    from gymrl_tpu_torch.run import cli
+    proto = cli.WORKLOADS[name]("cpu")[0]
+    cfg = proto.cfg
+    if first_update and hasattr(cfg, "steps_per_iter"):
+        # the replay reaches a batch after ceil(batch / envs) pushes, which
+        # start once the n-step window is warm
+        pushes = -(-cfg.batch_size // cfg.num_envs)
+        cfg = dataclasses.replace(cfg, steps_per_iter=pushes + getattr(cfg, "n_steps", 1) - 1)
+    return type(proto)(cfg, device=device, mesh=mesh)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _timed_iter(trainer, ts, barrier=None):
+    """One ``train_iter`` and its wall time in s (the card synchronized)."""
+    _sync(trainer.device)
+    if barrier is not None:
+        barrier()
+    t0 = time.perf_counter()
+    ts, out = trainer.train_iter(ts)
+    _sync(trainer.device)
+    return ts, out, time.perf_counter() - t0
+
+
+def _cpu_flat(ts) -> dict:
+    from gymrl_tpu_torch.utils.checkpoint import flat_state, state_tree
+    return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+            for k, v in flat_state(state_tree(ts)).items()}
+
+
+def _nccl_world_of_one(rank: int, world: int, case: str = "bench", device=None) -> dict:
+    """Phase 16 (a), rank 0 of a world of one on NCCL: the dry run, then one
+    bench-config iteration unsharded and one under ``make_mesh(1, 1)``.
+    The unsharded state is also phase 16 (b)'s reference for the case."""
+    import torch.distributed as dist
+    from gymrl_tpu_torch.distributed.dryrun import dryrun_multichip
+    from gymrl_tpu_torch.distributed.mesh import make_mesh
+
+    dry = dryrun_multichip(1, device)
+    mesh = make_mesh(1, 1, device)
+    plain = _dist_trainer(case, mesh.device)
+    a, out_a, wall_a = _timed_iter(plain, plain.init(0))
+    ref = _reference(plain, a, out_a, wall_a)
+    del plain, a
+    meshed = _dist_trainer(case, mesh.device, mesh)
+    b, out_b, wall_b = _timed_iter(meshed, meshed.init(0))
+    fa, fb = ref["state"], _cpu_flat(b)
+    differ = [k for k in fa if not (torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+                                    else fa[k] == fb[k])]
+    metrics = {k: (ref["metrics"][k], float(out_b.metrics[k])) for k in ref["metrics"]}
+    return {"backend": dist.get_backend(), "world": world, "mesh": dict(mesh.shape),
+            "dryrun": dry, "state_entries": len(fa), "differ": differ,
+            "metrics_equal": all(x == y for x, y in metrics.values()),
+            "ep_equal": torch.equal(ref["ep_return"], out_b.ep_return.cpu())
+            and torch.equal(ref["ep_done"], out_b.ep_done.cpu()),
+            "wall_s": {"unsharded": wall_a, "mesh_1x1": wall_b}, "reference": ref}
+
+
+def _reference(trainer, ts, out, wall: float) -> dict:
+    """What phase 16 holds a sharded run against: the unsharded state on
+    the CPU, metrics, episodes, wall time, the Adam steps taken and the
+    largest learning rate of the config."""
+    cfg = trainer.cfg
+    lr = max(v for k, v in vars(cfg).items() if k.startswith("lr") and type(v) is float)
+    state = _cpu_flat(ts)
+    steps = max(int(v) for k, v in state.items() if k.endswith(".step"))
+    return {"state": state, "metrics": {k: float(v) for k, v in out.metrics.items()},
+            "ep_return": out.ep_return.cpu(), "ep_done": out.ep_done.cpu(), "wall_s": wall,
+            "lr": lr, "adam_steps": steps, "bf16": bool(getattr(cfg, "sgd_bf16", False))}
+
+
+def _shared_card_world(rank: int, world: int, workdir: str, cases=DIST_CASES,
+                       device=None) -> dict:
+    """Phase 16 (b)-(c), one rank of the world: one iteration
+    of each case under its mesh, the whole state saved (``save_checkpoint``
+    gathers it); under the trunk split, the save restored into a fresh
+    state of the same mesh."""
+    import torch.distributed as dist
+    from gymrl_tpu_torch.distributed.mesh import make_mesh
+    from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    out = {"backend": dist.get_backend(), "world": world, "cases": {}}
+    for name, n_data, n_model in cases:
+        mesh = make_mesh(n_data, n_model, device)
+        trainer = _dist_trainer(name, mesh.device, mesh, first_update=True)
+        ts, o, wall = _timed_iter(trainer, trainer.init(0), mesh.barrier)
+        path = os.path.join(workdir, f"{name}.pt")
+        save_checkpoint(path, ts, mesh)
+        case = {"mesh": dict(mesh.shape), "device": str(mesh.device), "wall_s": wall,
+                "env_steps": ts.env_steps,
+                "metrics": {k: float(v) for k, v in o.metrics.items()},
+                "ep_return": o.ep_return.cpu(), "ep_done": o.ep_done.cpu()}
+        if n_model > 1:  # (c): a checkpoint under the trunk split, restored
+            fresh = _dist_trainer(name, mesh.device, mesh)
+            restored = restore_checkpoint(path, fresh.init(1), mesh)
+            got, want = _cpu_flat(restored), _cpu_flat(ts)
+            case["restore_differ"] = [
+                k for k in want if not (torch.equal(got[k], want[k])
+                                        if isinstance(want[k], torch.Tensor) else got[k] == want[k])]
+            case["split_shape"] = list(ts.params.shared_0.weight.shape)
+            case["saved_shape"] = list(torch.load(path, map_location="cpu", weights_only=True)
+                                       ["params"]["shared_0.weight"].shape)
+        out["cases"][name] = case
+        mesh.barrier()
+    return out
+
+
+# Phase 16's rules for a sharded iteration against the unsharded one on the card:
+#   * exact: the env batch (so every action), the n-step window, the episodes,
+#     the noise stream (every draw), obs statistics, reward scaler, counters and
+#     the replay's transitions;
+#   * every entry of the params (and target nets): |Δ| ≤ DIST_PARAM_ATOL
+#     (float32: the shares' means and the all-reduce add in another order, a
+#     few ulps per Adam step). The bench config computes its loss in bf16: a
+#     rank's bf16 mean over half a minibatch rounds differently from the whole
+#     one's at 2^-8 relative, which moves an Adam step by at most 2·lr·2^-8,
+#     so its atol is 2·lr·steps·2^-8 (3.0e-4 for 128 steps at lr 3e-4);
+#   * the metrics: rtol 1e-5 and atol DIST_PARAM_ATOL (the CPU tests' rule);
+#     the bench config's bf16 losses rtol and atol 2^-8 (one bf16 rounding of
+#     a mean of O(1) terms: standardized advantages, ratios near 1);
+#   * the recurrent hidden: SEQ_ATOL (the cell's rows at B/2 and at B go
+#     through different matmul kernels);
+#   * the PER sum-tree (priorities from the shares' TD errors): phase 7's
+#     rule, rtol PER_TREE_RTOL plus 1e-6 of the largest node;
+#   * optimizer moments are printed, not held.
+DIST_PARAM_ATOL = 1e-5
+DIST_METRIC_RTOL = 1e-5
+DIST_EXACT = ("vec_state", "window", "episodes", "target_syncs", "env_steps", "learn_steps",
+              "noise", "obs_rms", "reward_scaler", "beta")
+DIST_PARAMS = ("params", "nets", "targets", "target_params")
+
+
+def _dist_check(name: str, got: dict, metrics: dict, ref: dict) -> dict:
+    """Phase 16's rules for case ``name``: the saved state ``got`` and the
+    metrics against the unsharded ``ref``. Returns, per part of the state
+    and per metric, the largest error and its bound; raises, after checking
+    everything, on every break."""
+    want = ref["state"]
+    steps, lr = ref["adam_steps"], ref["lr"]
+    atol = 2 * lr * steps * 2.0 ** -8 if ref["bf16"] else DIST_PARAM_ATOL
+    report: dict = {}
+    breaks: list[str] = []
+    for k, w in want.items():
+        part = k.split(".")[1].split("[")[0]
+        g = got[k]
+        if not isinstance(w, torch.Tensor):
+            if g != w:
+                breaks.append(f"{k} is {g}, unsharded {w}")
+            continue
+        if g.shape != w.shape or g.dtype != w.dtype:
+            breaks.append(f"{k} {g.dtype}{list(g.shape)} vs {w.dtype}{list(w.shape)}")
+            continue
+        if not w.is_floating_point() or w.numel() == 0:
+            if not torch.equal(g, w):
+                breaks.append(f"{k} differs")
+            continue
+        err = (g.double() - w.double()).abs().max().item()
+        rec = report.setdefault(part, {"max_abs_err": 0.0, "bound": None})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if part in DIST_EXACT or (part == "replay" and not k.endswith(("tree", "max_priority"))):
+            bound = 0.0
+        elif part in DIST_PARAMS:
+            bound = atol
+        elif part == "hidden":
+            bound = SEQ_ATOL
+        elif part == "replay":
+            bound = (PER_TREE_RTOL + 1e-6) * w.double().abs().max().item()
+        else:
+            continue  # moments: printed only
+        rec["bound"] = max(rec["bound"] or 0.0, bound)
+        if err > bound:
+            breaks.append(f"{k} off by {err} > {bound}")
+    m_tol = 2.0 ** -8 if ref["bf16"] else DIST_METRIC_RTOL
+    m_atol = 2.0 ** -8 if ref["bf16"] else DIST_PARAM_ATOL
+    report["metrics"] = {"max_abs_err": 0.0, "rtol": m_tol, "atol": m_atol}
+    for k, w in ref["metrics"].items():
+        err = abs(metrics[k] - w)
+        report["metrics"]["max_abs_err"] = max(report["metrics"]["max_abs_err"], err)
+        if not err <= m_atol + m_tol * abs(w):
+            breaks.append(f"metric {k} is {metrics[k]}, unsharded {w}")
+    if breaks:
+        raise AssertionError(f"{name}: " + "; ".join(breaks) + f"\n{json.dumps(report)}")
+    return report
+
+
+def phase_distributed(device: torch.device, cases=DIST_CASES, one_case: str = "bench",
+                      world: int = 2, backend: str = "gloo") -> dict:
+    """Phase 16: the NCCL world of one, then ``world`` ranks (two sharing the
+    card over gloo; on a machine with more cards, one per card over NCCL).
+    (A CPU rehearsal passes ``device`` cpu: gloo then runs both worlds.)"""
+    from gymrl_tpu_torch.distributed.launch import run_world
+    from gymrl_tpu_torch.utils.checkpoint import flat_state
+
+    cuda = device.type == "cuda"
+    rank_device = None if cuda else "cpu"
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        one = run_world("chip_smoke:_nccl_world_of_one", 1,
+                        {"case": one_case, "device": rank_device},
+                        workdir=os.path.join(tmp, "a"), backend="nccl" if cuda else "gloo",
+                        timeout_s=DIST_TIMEOUT_S, extra_path=(root,))[0]
+        log("phase 16a world of one: " + json.dumps(
+            {k: v for k, v in one.items() if k not in ("dryrun", "reference")}
+            | {"dryrun_families": list(one["dryrun"])}))
+        if one["differ"] or not one["metrics_equal"] or not one["ep_equal"]:
+            raise AssertionError(f"the mesh of one is not the unsharded run: {one['differ']}")
+        refs = {one_case: one["reference"]}
+        for name, _, _ in cases:  # the unsharded runs, alone on the card
+            if name not in refs:
+                trainer = _dist_trainer(name, device, first_update=True)
+                ts, out, wall = _timed_iter(trainer, trainer.init(0))
+                refs[name] = _reference(trainer, ts, out, wall)
+                del trainer, ts, out
+        two = run_world("chip_smoke:_shared_card_world", world,
+                        {"workdir": tmp, "cases": cases, "device": rank_device},
+                        workdir=os.path.join(tmp, "b"), backend=backend if cuda else "gloo",
+                        timeout_s=DIST_TIMEOUT_S, extra_path=(root,))
+        results = {}
+        for name, n_data, n_model in cases:
+            ref, case = refs[name], two[0]["cases"][name]
+            got = flat_state(torch.load(os.path.join(tmp, f"{name}.pt"), map_location="cpu",
+                                        weights_only=True))
+            result = {
+                "mesh": case["mesh"], "device": case["device"], "adam_steps": ref["adam_steps"],
+                "wall_s": {"unsharded": ref["wall_s"],
+                           "sharded": [r["cases"][name]["wall_s"] for r in two]},
+                "state": _dist_check(name, got, case["metrics"], ref),
+            }
+            for key in ("restore_differ", "split_shape", "saved_shape"):
+                if key in case:
+                    result[key] = case[key]
+            log(f"phase 16b {name}: " + json.dumps(result))
+            if not (torch.equal(case["ep_return"], ref["ep_return"])
+                    and torch.equal(case["ep_done"], ref["ep_done"])):
+                raise AssertionError(f"{name}: the sharded episodes differ")
+            if not all(r["cases"][name]["metrics"] == case["metrics"] for r in two):
+                raise AssertionError(f"{name}: the ranks report different metrics")
+            if n_model > 1 and (case["restore_differ"]
+                                or case["saved_shape"][0] != n_model * case["split_shape"][0]):
+                raise AssertionError(f"{name}: the checkpoint under the split: {case}")
+            results[name] = result
+    summary = {"nccl": {k: one[k] for k in ("backend", "world", "mesh")},
+               "ranks": {"backend": two[0]["backend"], "world": two[0]["world"]}}
+    log("phase 16 distributed: " + json.dumps(summary))
+    return {"one": one, "two": results}
+
+
+# -- phase 17: profile ------------------------------------------------------------
+PROFILE_CASES = ("bench", "ppo_lunarlander")
+PROFILE_RATE_ITERS = 2  # untraced iterations fed to Throughput
+THROUGHPUT_RTOL = 0.10
+
+
+def phase_profile(device: torch.device, cases=PROFILE_CASES,
+                  rate_iters: int = PROFILE_RATE_ITERS) -> list[dict]:
+    """Phase 17: one ``train_iter`` per case under ``trace`` (kernel
+    launches, kernel time, busy share of the iteration), then untraced
+    iterations, whose wall time the busy share is also read against; the
+    bench config's are fed to ``Throughput``."""
+    from gymrl_tpu_torch.utils.profiling import Throughput, kernel_stats, trace
+
+    results = []
+    for name in cases:
+        trainer = _dist_trainer(name, device)
+        ts, _, _ = _timed_iter(trainer, trainer.init(0))  # warm-up
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            with trace(tmp, device) as prof:
+                ts, _, traced = _timed_iter(trainer, ts)
+            export_s = time.perf_counter() - t0 - traced
+            trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+        t0 = time.perf_counter()
+        stats = kernel_stats(prof)
+        stats_s = time.perf_counter() - t0
+        del prof
+        meter = Throughput()
+        meter.update(ts.env_steps)
+        n = rate_iters if name == cases[0] else 1
+        t0, walls = time.perf_counter(), []
+        for _ in range(n):
+            ts, _, wall = _timed_iter(trainer, ts)
+            walls.append(wall)
+            meter.update(ts.env_steps)
+        wall_rate = n * trainer.cfg.batch_total / (time.perf_counter() - t0)
+        untraced = sum(walls) / n
+        result = {"case": name, "env_steps_per_iter": trainer.cfg.batch_total,
+                  "launches_per_iter": stats["kernels"], "kernel_ms": stats["kernel_ms"],
+                  "busy_ms": stats["busy_ms"], "traced_wall_ms": traced * 1e3,
+                  "busy_share_traced": stats["busy_ms"] / (traced * 1e3),
+                  "untraced_wall_ms": untraced * 1e3,
+                  "busy_share_untraced": stats["busy_ms"] / (untraced * 1e3),
+                  "trace_bytes": trace_bytes, "stop_and_export_s": export_s,
+                  "kernel_stats_s": stats_s}
+        if n > 1:
+            result.update(throughput_rate=meter.rate, wall_rate=wall_rate)
+        log("phase 17 profile: " + json.dumps(result))
+        if stats["kernels"] == 0 or trace_bytes == 0:
+            raise AssertionError(f"{name}: the trace holds no kernel")
+        if n > 1 and abs(meter.rate / wall_rate - 1.0) > THROUGHPUT_RTOL:
+            raise AssertionError(f"{name}: Throughput {meter.rate} vs wall {wall_rate}")
+        results.append(result)
+        del trainer, ts
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2184,32 +2546,45 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     log(gpu_name_and_power_limit())  # nvidia-smi's "name, power.limit" line
 
-    phase_physics(device)
-    phase_bench(device)
-    phase_entry(device)
-    phase_classic(device)
-    phase_updates(device)
-    phase_workloads(device)
-    phase_flappy(device)
-    phase_per(device)
-    phase_family_updates(device)
-    phase_workloads(device, FAMILY, label="phase 9 family workload")
-    phase_pack(device)
-    phase_seq_forward(device)
-    phase_rnn_updates(device)
-    phase_rnn_workloads(device)
-    phase_mhc_pieces(device)
-    phase_mhc_updates(device)
-    phase_mhc_workloads(device)
-    phase_tabular_envs(device)
-    phase_tabular_steps(device)
-    phase_tabular_workloads(device)
-    phase_pixels(device)
-    phase_family_updates(device, ("dqn_cartpole_pixels",), label="phase 15 pixel update")
-    pixel = phase_workloads(device, ("dqn_cartpole_pixels",), label="phase 15 pixel workload")
+    phase_s: dict[str, float] = {}
+
+    def timed(number: int, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[str(number)] = phase_s.get(str(number), 0.0) + time.perf_counter() - t0
+        return out
+
+    timed(1, phase_physics, device)
+    timed(2, phase_bench, device)
+    timed(3, phase_entry, device)
+    timed(4, phase_classic, device)
+    timed(5, phase_updates, device)
+    timed(6, phase_workloads, device)
+    timed(7, phase_flappy, device)
+    timed(7, phase_per, device)
+    timed(8, phase_family_updates, device)
+    timed(9, phase_workloads, device, FAMILY, label="phase 9 family workload")
+    timed(10, phase_pack, device)
+    timed(10, phase_seq_forward, device)
+    timed(10, phase_rnn_updates, device)
+    timed(11, phase_rnn_workloads, device)
+    timed(12, phase_mhc_pieces, device)
+    timed(12, phase_mhc_updates, device)
+    timed(13, phase_mhc_workloads, device)
+    timed(14, phase_tabular_envs, device)
+    timed(14, phase_tabular_steps, device)
+    timed(14, phase_tabular_workloads, device)
+    timed(15, phase_pixels, device)
+    timed(15, phase_family_updates, device, ("dqn_cartpole_pixels",),
+          label="phase 15 pixel update")
+    pixel = timed(15, phase_workloads, device, ("dqn_cartpole_pixels",),
+                  label="phase 15 pixel workload")
     if pixel[0]["replay_obs_dtype"] != "torch.uint8":
         raise AssertionError(f"the pixel replay holds {pixel[0]['replay_obs_dtype']} frames")
-    phase_render(device)
+    timed(15, phase_render, device)
+    timed(16, phase_distributed, device)
+    timed(17, phase_profile, device)
+    log("phase_s: " + json.dumps(phase_s))
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps({"kernels": []}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

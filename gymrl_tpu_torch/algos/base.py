@@ -9,6 +9,12 @@ A ``Trainer`` exposes:
 The JAX trainers are pure and jitted; here ``train_iter`` runs eagerly and
 updates the parameters and optimizer held by ``ts`` in place (PyTorch's
 idiom), returning the state with its new env batch and counters.
+
+Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
+env batch and computes its share of every minibatch. A rank's loss is its
+share's mean, which is ``D`` times its part of the whole minibatch's mean,
+so gradients and metrics are averaged over ``data`` before the clip and
+the optimizer step, which then run replicated.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 from torch import nn
 
+from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
+from gymrl_tpu_torch.distributed.mesh import constrain_batch, gather_pytree_batch
 from gymrl_tpu_torch.utils.device import resolve_device
 from gymrl_tpu_torch.utils.logging import get_logger
 
@@ -36,10 +44,20 @@ class IterOut(NamedTuple):
 PhaseTimer = Callable[[str], None]
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Mean over entries where mask (reference ppo_lstm_lunarlander.py:646-655)."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8,
+                mesh=None) -> torch.Tensor:
+    """Mean over entries where mask (reference ppo_lstm_lunarlander.py:646-655).
+
+    Under a ``mesh`` with ``D > 1`` data ranks, ``x`` is one rank's share of
+    a minibatch and the shares hold different numbers of active entries, so
+    the count is summed over ``data`` (one all-reduce) and the result is
+    ``D·Σ_share / (count + eps)``: averaged over the ranks, the whole
+    minibatch's masked mean."""
     mask = mask.to(x.dtype)
-    return (x * mask).sum() / (mask.sum() + eps)
+    if mesh is None or mesh.data_size == 1:
+        return (x * mask).sum() / (mask.sum() + eps)
+    count = mesh.sum_(mask.sum().detach())
+    return (x * mask).sum() * float(mesh.data_size) / (count + eps)
 
 
 def pack_fields(data: dict[str, torch.Tensor]) -> tuple[torch.Tensor, dict]:
@@ -65,13 +83,24 @@ def unpack_fields(rows: torch.Tensor, spec: dict) -> dict[str, torch.Tensor]:
             for k, (a, b, shape, dtype) in spec.items()}
 
 
-def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float, mesh=None,
+                               split: list[bool] | None = None) -> torch.Tensor:
     """optax ``clip_by_global_norm``, in place: ``g · max/‖g‖`` only when
     ``‖g‖ ≥ max``. (``torch.nn.utils.clip_grad_norm_`` divides by
     ``‖g‖ + 1e-6`` and scales whenever the norm exceeds the bound, which is
     not the reference's update.) No host sync: the choice is a tensor op.
-    Returns the global norm before clipping."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    Returns the global norm before clipping.
+
+    ``split[i]`` marks a gradient this rank holds one ``model`` split of:
+    the squares of those are summed over ``model`` once, the replicated
+    ones counted once, so every rank clips by the whole net's norm."""
+    if split is None or not any(split):
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    else:
+        sq = torch.square(torch.stack(torch._foreach_norm(grads)))
+        mask = torch.tensor(split, device=sq.device)
+        part = mesh.sum_(torch.where(mask, sq, 0.0).sum(), group="model")
+        norm = torch.sqrt(torch.where(mask, 0.0, sq).sum() + part)
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -103,21 +132,36 @@ def clip_grads_by_value_(grads: list[torch.Tensor], clip: float) -> None:
     torch._foreach_clamp_max_(grads, clip)
 
 
-def set_grads(params: list[torch.nn.Parameter], loss: torch.Tensor) -> None:
+def set_grads(params: list[torch.nn.Parameter], loss: torch.Tensor, mesh=None) -> None:
     """``p.grad = ∂loss/∂p`` for exactly these params. Unlike ``backward``
     this leaves other modules the loss reads (a critic under an actor loss)
-    without gradients, so no step has to clear them."""
+    without gradients, so no step has to clear them. Under a ``mesh`` the
+    gradients are averaged over ``data``."""
     for p, g in zip(params, torch.autograd.grad(loss, params)):
         p.grad = g
+    if mesh is not None:
+        mesh.mean_([p.grad for p in params])
+
+
+def mesh_mean(values: list[torch.Tensor], mesh) -> list[torch.Tensor]:
+    """Scalars averaged over ``data`` (metrics of a minibatch share),
+    detached; unchanged without a mesh."""
+    if mesh is None:
+        return [v.detach() if v.requires_grad else v for v in values]
+    vec = torch.stack([v.detach().float() for v in values])
+    mesh.mean_([vec])
+    return list(vec.unbind())
 
 
 def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
               loss_fn: Callable[[nn.Module, dict], tuple[torch.Tensor, dict]], mb: dict,
-              max_grad_norm: float) -> dict[str, torch.Tensor]:
+              max_grad_norm: float, mesh=None) -> dict[str, torch.Tensor]:
     """One clipped Adam step of ``loss_fn(net, mb)``; returns its metrics,
     detached. A parameter the loss does not read (PPG's other value head,
     ppo_lstm's frozen RND target) gets a zero gradient, so Adam still
-    decays its moments and counts the step, as optax does."""
+    decays its moments and counts the step, as optax does. Under a
+    ``mesh``, ``mb`` is this rank's share: gradients and metrics are
+    averaged over ``data`` in one all-reduce before the clip."""
     loss, metrics = loss_fn(net, mb)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -125,9 +169,14 @@ def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is not None:
+        vec = torch.stack([v.float() for v in metrics.values()])
+        mesh.mean_([p.grad for p in params] + [vec])
+        metrics = dict(zip(metrics.keys(), vec.unbind()))
     clip_grads_by_global_norm_([p.grad for p in params], max_grad_norm)
     opt.step()
-    return {k: v.detach() for k, v in metrics.items()}
+    return metrics
 
 
 def mean_metrics(history: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
@@ -151,12 +200,47 @@ def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
     return opt
 
 
-class Trainer:
-    """Base: holds cfg + device; subclasses implement the API."""
+def assert_flat_tp_ok(mesh) -> None:
+    """The flat-optimizer guard of every PPO-family trainer: one Adam over
+    every tensor as one multi-tensor update cannot hold ``model`` splits
+    (the JAX package's flat master vector cannot carry per-leaf TP
+    layouts). Called at construction, which a restored state also passes."""
+    if mesh is not None and mesh.model_size > 1:
+        raise ValueError(f"flat_optimizer is incompatible with model-axis TP "
+                         f"(mesh model={mesh.model_size})")
 
-    def __init__(self, cfg, device: str | torch.device = "cuda"):
+
+class Trainer:
+    """Base: holds cfg + device (+ mesh); subclasses implement the API."""
+
+    def __init__(self, cfg, device: str | torch.device = "cuda", mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device_for(device))
+        n = getattr(cfg, "num_envs", None)
+        self.local_envs = n if mesh is None else mesh.local_count(n, "num_envs")
+
+    # -- the mesh's hooks: identities without one -------------------------------
+    def _noise(self, seed: int):
+        """The trainer's noise source: this data rank's view of one seeded
+        ``Noise`` under a mesh (``ShardedNoise``)."""
+        noise = Noise(self.device, seed)
+        if self.mesh is None:
+            return noise
+        return ShardedNoise(noise, self.mesh.data_rank, self.mesh.data_size)
+
+    def _check_split(self, n: int, what: str) -> None:
+        """Refuse, at construction, a learner batch that ``data`` does not divide."""
+        if self.mesh is not None:
+            self.mesh.local_count(n, what)
+
+    def _gather(self, tree, axis: int = 0):
+        """Every rank's env rows of ``tree`` along ``axis``, in rank order."""
+        return gather_pytree_batch(tree, self.mesh, axis)
+
+    def _share(self, tree, axis: int = 0):
+        """This rank's share of a minibatch ``tree`` that every rank holds whole."""
+        return constrain_batch(tree, self.mesh, axis)
 
     def init(self, seed: int = 0) -> Any:
         raise NotImplementedError
@@ -227,9 +311,10 @@ class RecurrentTrainer(Trainer):
                                 deterministic)[1]
 
     def _grad_step(self, ts, rows: torch.Tensor, spec: dict, loss_fn) -> dict[str, torch.Tensor]:
-        """One clipped Adam step (``grad_step``) on a minibatch of packed rows."""
-        return grad_step(ts.params, ts.opt_state, loss_fn, unpack_fields(rows, spec),
-                         self.cfg.max_grad_norm)
+        """One clipped Adam step (``grad_step``) on a minibatch of packed
+        rows (this rank's share of them under a mesh)."""
+        return grad_step(ts.params, ts.opt_state, loss_fn, unpack_fields(self._share(rows), spec),
+                         self.cfg.max_grad_norm, self.mesh)
 
     def _epochs(self, ts, packed: torch.Tensor, spec: dict, perms: torch.Tensor,
                 loss_fn) -> dict[str, torch.Tensor]:

@@ -26,6 +26,13 @@ order of dependencies: the actor loss reads the critic the same update just
 stepped. Only ``size >= batch_size`` and TD3's ``learn_step % policy_freq``
 (Python ints) branch on the host. Every draw comes from ``ts.noise`` in the
 reference's order.
+
+Under a ``mesh`` each data rank acts for its share of the envs; each env
+step's transitions are gathered, so every rank pushes the whole batch and
+holds the same replay. Sampled indices are shared draws: every rank samples
+the same minibatch and takes its share of it (and of the update's normals).
+Each network's gradients are averaged over ``data`` before its step, and
+the metrics after the update.
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, frozen_copy, set_grads, soft_update,
+    IterOut, PhaseTimer, Trainer, adam, frozen_copy, mesh_mean, set_grads, soft_update,
 )
 from gymrl_tpu_torch.core.noise import Noise
 from gymrl_tpu_torch.envs.registry import make_vec
@@ -224,9 +231,10 @@ class OffPolicyContinuousTrainer(Trainer):
     target_names: tuple[str, ...] = ()  # the nets that have a target copy
     metric_names: tuple[str, ...] = ()
 
-    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.batch_size, "batch_size")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         env = self.venv.env
         self.obs_dim = env.obs_dim
         self._act_dim = env.act_dim  # None for a discrete env
@@ -262,7 +270,7 @@ class OffPolicyContinuousTrainer(Trainer):
             obs=torch.zeros(self.obs_dim), action=act_example, reward=torch.zeros(()),
             next_obs=torch.zeros(self.obs_dim), done=torch.zeros(()),
         )
-        noise = Noise(self.device, seed)
+        noise = self._noise(seed)
         return OffPolicyTrainState(
             nets=nets, targets=targets, opts=opts,
             replay=replay_init(example, cfg.memory_capacity, self.device),
@@ -290,8 +298,10 @@ class OffPolicyContinuousTrainer(Trainer):
             with torch.no_grad():
                 action = self._act(ts.nets, vec_state.obs, ts.noise, deterministic=False)
             vec_state, tr = self.venv.step(vec_state, action, ts.noise)
+            # every rank's envs, in rank order: every rank pushes the whole batch
+            tr = self._gather(tr)
             replay = replay_push_batch(replay, Transition(
-                obs=tr.obs, action=action, reward=tr.reward,
+                obs=tr.obs, action=tr.action, reward=tr.reward,
                 next_obs=tr.next_obs, done=tr.done.float(),
             ))
             mark("act")
@@ -299,8 +309,9 @@ class OffPolicyContinuousTrainer(Trainer):
             if replay.size >= cfg.batch_size:
                 step_metrics = []
                 for _ in range(cfg.n_updates):
-                    batch = replay_sample(replay, ts.noise, cfg.batch_size)
-                    step_metrics.append(torch.stack(self._update(ts, batch, learn_steps, ts.noise)))
+                    batch = self._share(replay_sample(replay, ts.noise, cfg.batch_size))
+                    step_metrics.append(torch.stack(mesh_mean(
+                        self._update(ts, batch, learn_steps, ts.noise), self.mesh)))
                     learn_steps += 1
                 metrics.append(torch.stack(step_metrics).mean(dim=0))
             else:
@@ -316,9 +327,8 @@ class OffPolicyContinuousTrainer(Trainer):
                       metrics=dict(zip(self.metric_names, means.unbind())))
         return new_ts, out
 
-    @staticmethod
-    def _step(opt: torch.optim.Adam, params: list[torch.Tensor], loss: torch.Tensor) -> None:
-        set_grads(params, loss)
+    def _step(self, opt: torch.optim.Adam, params: list[torch.Tensor], loss: torch.Tensor) -> None:
+        set_grads(params, loss, self.mesh)
         opt.step()
 
 
@@ -427,8 +437,8 @@ class SACTrainer(OffPolicyContinuousTrainer):
     target_names = ("critic",)
     metric_names = ("actor_loss", "critic_loss", "alpha_loss", "alpha")
 
-    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
         self.target_entropy = (
             cfg.target_entropy if cfg.target_entropy is not None else -float(self._act_dim)
         )
@@ -488,8 +498,8 @@ class DiscreteSACTrainer(OffPolicyContinuousTrainer):
     target_names = ("critic1", "critic2")
     metric_names = ("actor_loss", "critic_loss", "alpha_loss", "alpha")
 
-    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: OffPolicyConfig, device: str | torch.device = "cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
         self.target_entropy = cfg.target_entropy if cfg.target_entropy is not None else -1.0
 
     def _make_nets(self, gen):

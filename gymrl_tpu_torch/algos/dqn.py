@@ -17,6 +17,12 @@ sync count stay on the device and the sync is a ``torch.where`` per tensor,
 so the loop never waits for the device; only ``size >= batch_size`` (a
 Python int) branches on the host. Every draw comes from ``ts.noise`` in the
 reference's order.
+
+Under a ``mesh`` each data rank acts for its share of the envs; each env
+step's transitions are gathered, so every rank pushes the whole batch and
+holds the same replay. Sampled indices are shared draws, so every rank
+samples the same minibatch and takes its share of it; gradients and the
+loss are averaged over ``data`` before the clamp and the step.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, clip_grads_by_value_, frozen_copy, set_grads,
+    IterOut, PhaseTimer, Trainer, adam, clip_grads_by_value_, frozen_copy, mesh_mean, set_grads,
 )
 from gymrl_tpu_torch.core.noise import Noise
 from gymrl_tpu_torch.core.schedules import exp_epsilon_decay
@@ -101,9 +107,10 @@ class DQNTrainState(NamedTuple):
 
 
 class DQNTrainer(Trainer):
-    def __init__(self, cfg: DQNConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: DQNConfig, device: str | torch.device = "cuda", mesh=None):
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.batch_size, "batch_size")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
@@ -115,7 +122,7 @@ class DQNTrainer(Trainer):
         cfg = self.cfg
         gen = torch.Generator().manual_seed(seed)
         net = QNetwork(self.obs_dim, self.n_actions, cfg.hidden_dim, generator=gen).to(self.device)
-        noise = Noise(self.device, seed)
+        noise = self._noise(seed)
         example = Transition(
             obs=torch.zeros(self.obs_dim),
             action=torch.zeros((), dtype=torch.int32),
@@ -162,12 +169,14 @@ class DQNTrainer(Trainer):
                                     cfg.epsilon_decay)
             with torch.no_grad():
                 greedy = torch.argmax(net(vec_state.obs), dim=-1).to(torch.int32)
-            u, randoms = noise.explore(cfg.num_envs, self.n_actions)
+            u, randoms = noise.explore(self.local_envs, self.n_actions)
             action = torch.where(u < float(eps), randoms, greedy)
 
             vec_state, tr = self.venv.step(vec_state, action, noise)
+            # every rank's envs, in rank order: every rank pushes the whole batch
+            tr = self._gather(tr)
             replay = replay_push_batch(replay, Transition(
-                obs=tr.obs, action=action, reward=tr.reward,
+                obs=tr.obs, action=tr.action, reward=tr.reward,
                 next_obs=tr.next_obs, done=tr.done.float(),
             ))
             mark("act")
@@ -215,9 +224,9 @@ class DQNTrainer(Trainer):
 
     def _update(self, net, target, opt, params, replay: ReplayState, noise) -> torch.Tensor:
         """One sampled minibatch step; returns the loss before the step."""
-        batch = replay_sample(replay, noise, self.cfg.batch_size)
+        batch = self._share(replay_sample(replay, noise, self.cfg.batch_size))
         loss = self._loss(net, target, batch)
-        set_grads(params, loss)
+        set_grads(params, loss, self.mesh)
         clip_grads_by_value_([p.grad for p in params], 1.0)
         opt.step()
-        return loss.detach()
+        return mesh_mean([loss], self.mesh)[0]

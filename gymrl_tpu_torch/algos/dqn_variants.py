@@ -34,6 +34,15 @@ reference's order. With ``obs_uint8`` the replay stores frames as
 ``clamp(round(x·255), 0, 255)`` in uint8, quantized before the push (the
 ring's slice write would truncate floats) and divided by 255 after the
 sample.
+
+Under a ``mesh`` each data rank acts for its share of the envs and keeps
+their n-step window; the obs statistics and the reward scaler's RMS read the
+whole batch, and each env step's folded transitions are gathered, so every
+rank pushes the whole batch and holds the same replay and sum-tree. Sampled
+indices, PER uniforms and an update's NoisyNet ε are shared draws; the IS
+weights are normalized over the whole sampled batch before each rank takes
+its share; gradients and the loss are averaged over ``data`` before the
+clip; the TD errors are gathered, so every rank writes the same priorities.
 """
 
 from __future__ import annotations
@@ -47,7 +56,7 @@ from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
     IterOut, PhaseTimer, Trainer, adam, clip_grads_by_global_norm_, clip_grads_by_value_,
-    frozen_copy, set_grads, soft_update,
+    frozen_copy, mesh_mean, set_grads, soft_update,
 )
 from gymrl_tpu_torch.core.noise import Noise
 from gymrl_tpu_torch.core.normalization import (
@@ -302,11 +311,12 @@ def fold_window(w: NStepWindow, gamma: float) -> Transition:
 
 
 class DQNFamilyTrainer(Trainer):
-    def __init__(self, cfg: DQNFamilyConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: DQNFamilyConfig, device: str | torch.device = "cuda", mesh=None):
         if cfg.obs_uint8 and cfg.normalize_obs:
             raise ValueError("obs_uint8 stores raw [0, 1] frames; it excludes normalize_obs")
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.batch_size, "batch_size")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_shape = self.venv.env.obs_shape  # (d,) for vectors, (H, W, C) for pixels
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
@@ -324,8 +334,8 @@ class DQNFamilyTrainer(Trainer):
         generator on the trainer's device."""
         cfg, dev = self.cfg, self.device
         net = self.make_net(torch.Generator().manual_seed(seed)).to(dev)
-        noise = Noise(dev, seed)
-        d, b, n = self.obs_shape, cfg.num_envs, cfg.n_steps
+        noise = self._noise(seed)
+        d, b, n = self.obs_shape, self.local_envs, cfg.n_steps
         frame = torch.zeros(d, dtype=torch.uint8 if cfg.obs_uint8 else torch.float32)
         example = Transition(
             obs=frame, action=torch.zeros((), dtype=torch.int32),
@@ -403,10 +413,10 @@ class DQNFamilyTrainer(Trainer):
             # --- scaling and statistics before the replay sees the transition
             reward = tr.reward
             if cfg.scale_rewards:
-                scaler, reward = reward_scaler_step(scaler, reward)
+                scaler, reward = reward_scaler_step(scaler, reward, self._gather)
                 scaler = reward_scaler_reset(scaler, tr.done)
-            if cfg.normalize_obs:
-                obs_rms = rms_update_batch(obs_rms, tr.next_obs)
+            if cfg.normalize_obs:  # statistics of the whole env batch
+                obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
                 next_obs = normalize_obs(obs_rms, tr.next_obs)
             else:
                 next_obs = tr.next_obs
@@ -422,8 +432,8 @@ class DQNFamilyTrainer(Trainer):
             if cfg.obs_uint8:  # clamp before the cast: uint8 would wrap mod 256
                 emit = emit._replace(obs=quantize_frames(emit.obs),
                                      next_obs=quantize_frames(emit.next_obs))
-            if warm:
-                replay = push(replay, emit)
+            if warm:  # every rank's envs, in rank order: the same replay everywhere
+                replay = push(replay, self._gather(emit))
             mark("act")
 
             # --- k gradient updates (update:data parity)
@@ -446,14 +456,15 @@ class DQNFamilyTrainer(Trainer):
                 loss = zero
 
             # --- target network maintenance
-            episodes = episodes + tr.done.sum(dtype=torch.int32)
+            done, ep_stats = self._gather((tr.done, (tr.final_return, tr.final_length)))
+            episodes = episodes + done.sum(dtype=torch.int32)
             target_syncs = self._target_update(online, target, episodes, learn_steps,
                                                did_update, target_syncs)
             mark("update")
 
             env_steps += cfg.num_envs
             losses.append(loss)
-            stats.append((tr.final_return, tr.final_length, tr.done))
+            stats.append((*ep_stats, done))
 
         ep_ret, ep_len, ep_done = (torch.stack(f) for f in zip(*stats))
         new_ts = ts._replace(
@@ -508,11 +519,14 @@ class DQNFamilyTrainer(Trainer):
                                    next_obs=batch.next_obs.float() / 255.0)
         eps = (noise.noisy_update(layers, 2 if cfg.double else 1) if cfg.noisy
                else [None, None])
+        # this rank's share of the sampled batch (its IS weights already
+        # normalized over the whole batch)
+        batch, weights = self._share((batch, weights))
         delta = self._td_error(ts.params, ts.target_params, batch, eps)
         sq = torch.square(delta)
         loss = (sq if weights is None else sq * weights).mean()
         params = list(ts.params.parameters())
-        set_grads(params, loss)
+        set_grads(params, loss, self.mesh)
         grads = [p.grad for p in params]
         if cfg.grad_clip_value:
             clip_grads_by_value_(grads, cfg.grad_clip_value)
@@ -521,13 +535,13 @@ class DQNFamilyTrainer(Trainer):
         ts.opt_state.step()
 
         if cfg.use_per:
-            err = delta.detach().abs() + cfg.per_eps
+            err = self._gather(delta.detach()).abs() + cfg.per_eps
             if cfg.per_error_max is not None:
                 err = torch.clamp(err, max=cfg.per_error_max)
             replay = per_update_priorities(replay, leaf_idx, torch.pow(err, cfg.per_alpha))
             if cfg.per_beta_increment > 0:
                 beta = torch.clamp(beta + cfg.per_beta_increment, max=1.0)
-        return replay, beta, loss.detach()
+        return replay, beta, mesh_mean([loss], self.mesh)[0]
 
     @torch.no_grad()
     def _target_update(self, online, target, episodes, learn_steps: int, did_update: bool,

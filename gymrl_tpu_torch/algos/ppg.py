@@ -65,11 +65,11 @@ class PPGActorCritic(RecurrentActorCritic):
 
 
 class PPGTrainer(PPORNNTrainer):
-    def __init__(self, cfg: PPGConfig, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: PPGConfig, device: str | torch.device = "cuda", mesh=None):
         if cfg.clone_target not in ("current", "behavior"):
             raise ValueError(f"clone_target must be 'current' or 'behavior', "
                              f"got {cfg.clone_target!r}")
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, mesh)
 
     def make_net(self, generator: torch.Generator | None = None) -> PPGActorCritic:
         return PPGActorCritic(self.obs_dim, self.n_actions, self.cfg.feature_dim, generator)
@@ -100,10 +100,11 @@ class PPGTrainer(PPORNNTrainer):
         if self.aux_runs(ts.env_steps):
             if cfg.clone_target == "current":
                 # the anchor: the post-phase-1 distribution over the whole buffer
-                with torch.no_grad():
-                    anchor_logits, _ = self._aux_seq_forward(ts.params, data["h0"], data["obs"])
-                    packed, spec = pack_fields(
-                        dict(data, anchor_logp_all=torch.log_softmax(anchor_logits, dim=-1)))
+                with torch.no_grad():  # each rank its share of the rows, then gathered
+                    anchor_logits, _ = self._aux_seq_forward(
+                        ts.params, self._share(data["h0"]), self._share(data["obs"]))
+                    anchor = self._gather(torch.log_softmax(anchor_logits, dim=-1))
+                    packed, spec = pack_fields(dict(data, anchor_logp_all=anchor))
             aux = self._epochs(ts, packed, spec, perms2, self._aux_loss)
         else:
             zero = torch.zeros((), device=self.device)
@@ -119,14 +120,15 @@ class PPGTrainer(PPORNNTrainer):
         logits, aux_values = self._aux_seq_forward(net, mb["h0"], mb["obs"])
         logp_all = torch.log_softmax(logits, dim=-1)
         mask = mb["mask"]
-        aux_value_loss = masked_mean(torch.square(aux_values - mb["v_target"]), mask)
+        aux_value_loss = masked_mean(torch.square(aux_values - mb["v_target"]), mask,
+                                     mesh=self.mesh)
         if self.cfg.clone_target == "current":
             anchor = mb["anchor_logp_all"]
             kl = (torch.exp(anchor) * (anchor - logp_all)).sum(dim=-1)
-            clone_loss = masked_mean(kl, mask)
+            clone_loss = masked_mean(kl, mask, mesh=self.mesh)
         else:
             logp = logp_all.gather(-1, mb["action"].long()[..., None]).squeeze(-1)
-            clone_loss = masked_mean(torch.square(logp - mb["logp"]), mask)
+            clone_loss = masked_mean(torch.square(logp - mb["logp"]), mask, mesh=self.mesh)
         loss = aux_value_loss + self.cfg.beta_clone * clone_loss
         return loss, {"aux_value_loss": aux_value_loss, "clone_loss": clone_loss}
 

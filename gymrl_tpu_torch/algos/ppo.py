@@ -17,6 +17,15 @@ over all T·B successors, GAE and standardization, then epochs of shuffled
 minibatches over the packed ``[N, obs+4]`` rows. Every random draw comes
 from ``ts.noise`` in the reference's order, so a replaying noise source
 reproduces the JAX trainer's iteration.
+
+Under a ``mesh`` (``distributed/mesh.py``): each data rank steps its share
+of the envs and computes their successor values and GAE (elementwise per
+env column, so bit-equal to those columns of the unsharded GAE); the
+rollout's columns are then gathered, so standardization, the packed rows
+and the epoch permutations are the unsharded ones on every rank; each rank
+takes its share of each minibatch, and gradients and metrics are averaged
+over ``data`` before the clip. A ``model`` axis splits the trunk Megatron's
+way (``split_trunk``), as the JAX trainer's layout does.
 """
 
 from __future__ import annotations
@@ -26,11 +35,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, clip_grads_by_global_norm_,
+    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, clip_grads_by_global_norm_,
 )
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -115,11 +125,58 @@ class ActorCritic(nn.Module):
         self.critic_0 = Dense(hidden_dim, hidden_dim, ortho, generator=g)
         self.critic_head = Dense(hidden_dim, 1, gl_init.orthogonal(1.0), generator=g)
 
+    # Parameters held as one ``model`` split each, by name → the split dim
+    # (``split_trunk``); empty for the whole net.
+    model_split: dict[str, int] = {}
+
     def forward(self, x):
         trunk = torch.tanh(self.shared_1(torch.tanh(self.shared_0(x))))
         logits = self.actor_head(torch.tanh(self.actor_0(trunk)))
         value = self.critic_head(torch.tanh(self.critic_0(trunk)))
         return logits, value.squeeze(-1)
+
+
+class RowParallelDense(nn.Module):
+    """A ``Dense`` holding one ``model`` rank's input columns of the weight
+    (rows ``[H/M·m, H/M·(m+1))`` of the flax kernel): the partial product is
+    summed over ``model``, then the whole bias is added."""
+
+    def __init__(self, dense: Dense, mesh):
+        super().__init__()
+        n = dense.in_features // mesh.model_size
+        cols = slice(mesh.model_rank * n, (mesh.model_rank + 1) * n)
+        self.weight = nn.Parameter(dense.weight.detach()[:, cols].clone())
+        self.bias = nn.Parameter(dense.bias.detach().clone())
+        self.mesh = mesh
+
+    def forward(self, x):
+        return self.mesh.model_sum(F.linear(x, self.weight)) + self.bias
+
+
+def split_trunk(net: ActorCritic, mesh) -> ActorCritic:
+    """Megatron's split of the trunk over ``model``, in place (the JAX
+    trainer's layout, ``gymrl_tpu/algos/ppo.py:215-229``): ``shared_0`` by
+    output units (its weight's rows and its bias), ``shared_1`` by input
+    columns (``RowParallelDense``), whose partial products are summed over
+    ``model``; everything after the sum is replicated. The trunk's input is
+    the observation, which needs no gradient, so Megatron's other operator
+    (identity forward, all-reduce backward) has nothing to do and is left
+    out. A net with ``model_size == 1`` is returned whole."""
+    m = mesh.model_size
+    if m == 1:
+        return net
+    h = net.shared_0.out_features
+    if h % m:
+        raise ValueError(f"hidden {h} does not split over model={m} ranks")
+    rows = slice(mesh.model_rank * (h // m), (mesh.model_rank + 1) * (h // m))
+    s0 = Dense(net.shared_0.in_features, h // m, generator=torch.Generator())  # overwritten
+    with torch.no_grad():
+        s0.weight.copy_(net.shared_0.weight[rows])
+        s0.bias.copy_(net.shared_0.bias[rows])
+    net.shared_0 = s0
+    net.shared_1 = RowParallelDense(net.shared_1, mesh)
+    net.model_split = {"shared_0.weight": 0, "shared_0.bias": 0, "shared_1.weight": 1}
+    return net
 
 
 class PPOTrainState(NamedTuple):
@@ -159,9 +216,12 @@ def forward_bf16(net: nn.Module, obs: torch.Tensor):
 
 
 class PPOTrainer(Trainer):
-    def __init__(self, cfg: PPOConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: PPOConfig, device: str | torch.device = "cuda", mesh=None):
+        if cfg.flat_optimizer:
+            assert_flat_tp_ok(mesh)
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.minibatch_size, "minibatch_size")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
@@ -173,8 +233,10 @@ class PPOTrainer(Trainer):
         cfg = self.cfg
         gen = torch.Generator().manual_seed(seed)
         net = ActorCritic(self.obs_dim, self.n_actions, cfg.hidden_dim, generator=gen)
+        if self.mesh is not None:
+            net = split_trunk(net, self.mesh)
         net = net.to(self.device)
-        noise = Noise(self.device, seed)
+        noise = self._noise(seed)
         return PPOTrainState(
             params=net,
             opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
@@ -217,6 +279,10 @@ class PPOTrainer(Trainer):
                 roll.reward, roll.value, next_values, roll.terminated, roll.done,
                 cfg.gamma, cfg.gae_lambda,
             )
+            # every rank's env columns, in rank order: the unsharded rollout
+            obs, action, logp, adv, v_target, ep_ret, ep_len, ep_done = self._gather(
+                (roll.obs, roll.action, roll.logp, adv, v_target, ep_ret, ep_len, ep_done),
+                axis=1)
             adv = standardize(adv)  # rollout-wide (ref :236)
 
             # The loss reads (obs, action, logp, adv, v_target): pack them into
@@ -225,9 +291,9 @@ class PPOTrainer(Trainer):
             n = cfg.batch_total
             packed = torch.cat(
                 [
-                    roll.obs.reshape(n, self.obs_dim),
-                    roll.action.reshape(n, 1).float(),
-                    roll.logp.reshape(n, 1),
+                    obs.reshape(n, self.obs_dim),
+                    action.reshape(n, 1).float(),
+                    logp.reshape(n, 1),
                     adv.reshape(n, 1),
                     v_target.reshape(n, 1),
                 ],
@@ -282,8 +348,8 @@ class PPOTrainer(Trainer):
             action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
             logp, _ = categorical_logp_entropy(logits, action)
             vec_state, tr = self.venv.step(vec_state, action, noise)
-            if cfg.normalize_obs:
-                obs_rms = rms_update_batch(obs_rms, tr.next_obs)
+            if cfg.normalize_obs:  # statistics of the whole env batch
+                obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
             steps.append((
                 Rollout(
                     obs=nobs, action=action, logp=logp, value=value,
@@ -327,24 +393,32 @@ class PPOTrainer(Trainer):
 
     def _sgd(self, ts: PPOTrainState, packed: torch.Tensor, perms: torch.Tensor):
         """Epochs of shuffled minibatches; returns metrics averaged over all
-        gradient steps."""
-        cfg = self.cfg
+        gradient steps. Under a mesh each rank takes its share of every
+        minibatch; gradients and metrics are averaged over ``data`` in one
+        all-reduce, and the clip reads the norm of the whole (split) net."""
+        cfg, mesh = self.cfg, self.mesh
         net, opt = ts.params, ts.opt_state
-        params = list(net.parameters())
+        names, params = zip(*net.named_parameters())
+        split = [n in net.model_split for n in names]
         d = self.obs_dim
         history = []
         for perm in perms:
             # one shuffle gather per epoch, then contiguous minibatch slices
             mb_xs = packed[perm].reshape(cfg.num_minibatches, cfg.minibatch_size, d + 4)
             for mb in mb_xs:
+                mb = self._share(mb)
                 loss, metrics = self._loss(
                     net, mb[:, :d], mb[:, d].to(torch.int32), mb[:, d + 1],
                     mb[:, d + 2], mb[:, d + 3],
                 )
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
-                clip_grads_by_global_norm_([p.grad for p in params], cfg.max_grad_norm)
+                step_metrics = torch.stack([m.detach() for m in metrics.values()])
+                grads = [p.grad for p in params]
+                if mesh is not None:
+                    mesh.mean_(grads + [step_metrics])
+                clip_grads_by_global_norm_(grads, cfg.max_grad_norm, mesh, split)
                 opt.step()
-                history.append(torch.stack([m.detach() for m in metrics.values()]))
+                history.append(step_metrics)
         means = torch.stack(history).mean(dim=0)
         return dict(zip(metrics.keys(), means.unbind()))

@@ -24,6 +24,13 @@ state in place, with no host sync. Every draw comes from ``ts.noise`` in the
 reference's order: per rollout step the action's Gumbels, then the env's
 draws; then one permutation per epoch; then, only when ``clip_cov_ratio >
 0``, one uniform per sample of each minibatch (``Noise.cov_uniforms``).
+
+Under a ``mesh`` each data rank steps its share of the envs and computes
+their successor values and GAE per env column; the columns are gathered, so
+standardization, the packed rows and the permutations are the unsharded
+ones. clip-cov's mask is a function of the whole minibatch (its means and
+its ranking), so every rank computes it over the whole minibatch before it
+takes its share; the plain means of the loss average over ``data``.
 """
 
 from __future__ import annotations
@@ -38,7 +45,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, grad_step, mean_metrics, pack_fields, unpack_fields,
+    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, grad_step, mean_metrics, pack_fields,
+    unpack_fields,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
 from gymrl_tpu_torch.core.gae import compute_gae_dual_lambda, standardize
@@ -201,9 +209,12 @@ class FullRollout(NamedTuple):
 
 
 class PPOFullTrainer(Trainer):
-    def __init__(self, cfg: PPOFullConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: PPOFullConfig, device: str | torch.device = "cuda", mesh=None):
+        if cfg.flat_optimizer:
+            assert_flat_tp_ok(mesh)
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.batch_total // cfg.num_minibatches, "minibatch_size")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
@@ -218,7 +229,7 @@ class PPOFullTrainer(Trainer):
         same weights on every device); env and training noise from a
         generator on the trainer's device."""
         net = self.make_net(torch.Generator().manual_seed(seed)).to(self.device)
-        noise = Noise(self.device, seed)
+        noise = self._noise(seed)
         return FullTrainState(
             params=net,
             opt_state=adam(list(net.parameters()), self.cfg.lr, 1e-8,
@@ -247,11 +258,14 @@ class PPOFullTrainer(Trainer):
         n = cfg.batch_total
         with torch.no_grad():
             # successor values in one batched forward; done cuts them anyway
-            _, next_values = ts.params(roll.next_obs.reshape(n, -1))
+            _, next_values = ts.params(roll.next_obs.reshape(-1, self.obs_dim))
             adv, returns = compute_gae_dual_lambda(
                 roll.reward, roll.value, next_values.reshape(roll.value.shape),
                 roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
             )
+            # every rank's env columns, in rank order: the unsharded rollout
+            roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
+                (roll._replace(next_obs=None), adv, returns, (ep_ret, ep_len, ep_done)), axis=1)
             packed, spec = pack_fields({
                 "obs": roll.obs.reshape(n, -1), "action": roll.action.reshape(n),
                 "logp": roll.logp.reshape(n), "old_entropy": roll.entropy.reshape(n),
@@ -325,8 +339,10 @@ class PPOFullTrainer(Trainer):
         return (lp - lp.mean()) * (mb["adv"] - mb["adv"].mean())
 
     def _grad_step(self, ts: FullTrainState, mb: dict, ent_coef: float) -> dict[str, torch.Tensor]:
-        return grad_step(ts.params, ts.opt_state, lambda net, m: self._loss(net, m, ent_coef), mb,
-                         self.cfg.max_grad_norm)
+        """One clipped Adam step on the minibatch ``mb`` (this rank's share
+        of it under a mesh)."""
+        return grad_step(ts.params, ts.opt_state, lambda net, m: self._loss(net, m, ent_coef),
+                         self._share(mb), self.cfg.max_grad_norm, self.mesh)
 
     def _loss(self, net, mb: dict, ent_coef: float):
         cfg = self.cfg

@@ -32,6 +32,13 @@ cell's hidden side is a loop over L. ``train_iter`` runs eagerly, updates the
 net and optimizer in place and makes no host sync. Every draw comes from
 ``ts.noise`` in the reference's order: per rollout step the action's
 Gumbels, then the env's draws; then one permutation per epoch.
+
+Under a ``mesh`` each data rank steps its share of the envs with their
+packed hiddens and computes their successor values and GAE per env column;
+the columns the chunks read are gathered, so standardization, the chunks
+and the permutations are the unsharded ones. Each rank takes its share of
+each minibatch; the ERC mask depends on the current policy, so its masked
+means sum their active counts over ``data``.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, adam, masked_mean, pack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, adam, assert_flat_tp_ok, masked_mean, pack_fields,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
 from gymrl_tpu_torch.algos.ppo_full import SiluRMSMLP, annealed
@@ -210,9 +217,12 @@ class LSTMRollout(NamedTuple):
 
 
 class PPOLSTMTrainer(RecurrentTrainer):
-    def __init__(self, cfg: PPOLSTMConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: PPOLSTMConfig, device: str | torch.device = "cuda", mesh=None):
+        if cfg.flat_optimizer:
+            assert_flat_tp_ok(mesh)
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.seqs_per_rollout // cfg.num_minibatches, "seq_minibatch")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
@@ -226,13 +236,13 @@ class PPOLSTMTrainer(RecurrentTrainer):
         generator on the trainer's device."""
         cfg, dev = self.cfg, self.device
         net = self.make_net(torch.Generator().manual_seed(seed)).to(dev)
-        noise = Noise(dev, seed)
+        noise = self._noise(seed)
         return LSTMTrainState(
             params=net,
             opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
                            foreach=cfg.flat_optimizer),
             vec_state=self.venv.reset(noise),
-            hidden=torch.zeros(cfg.num_envs, net.packed_hidden, device=dev),
+            hidden=torch.zeros(self.local_envs, net.packed_hidden, device=dev),
             noise=noise,
             env_steps=0,
         )
@@ -268,6 +278,10 @@ class PPOLSTMTrainer(RecurrentTrainer):
                 roll.reward, roll.value, next_values.reshape(roll.value.shape),
                 roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
             )
+            # every rank's env columns, in rank order: the unsharded rollout
+            roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
+                (roll._replace(next_obs=None, h_post=None), adv, returns,
+                 (ep_ret, ep_len, ep_done)), axis=1)
             packed, spec = pack_fields(self._chunks(roll, standardize(adv), returns))
         mark("gae")
 
@@ -351,19 +365,20 @@ class PPOLSTMTrainer(RecurrentTrainer):
         adv = mb["adv"]
         surr1 = torch.clamp(ratio, 0.0, cfg.dual_clip) * adv
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps_min, 1.0 + cfg.clip_eps_max) * adv
-        policy_loss = masked_mean(-torch.minimum(surr1, surr2), corr)
+        policy_loss = masked_mean(-torch.minimum(surr1, surr2), corr, mesh=self.mesh)
         # value clipping, asymmetric like the ratio clip (ref :763-770)
         old = mb["old_value"]
         v_clip = old + torch.clamp(values - old, -cfg.clip_eps_min, cfg.clip_eps_max)
         vl = torch.maximum(torch.square(values - mb["ret"]), torch.square(v_clip - mb["ret"]))
-        value_loss = 0.5 * masked_mean(vl, corr)
-        entropy_term = masked_mean(entropy, corr)
+        value_loss = 0.5 * masked_mean(vl, corr, mesh=self.mesh)
+        entropy_term = masked_mean(entropy, corr, mesh=self.mesh)
         rnd_loss = torch.square(predict - target).mean()
         loss = policy_loss + value_loss - ent_coef * entropy_term + rnd_loss
         clipped = (ratio < 1.0 - cfg.clip_eps_min) | (ratio > 1.0 + cfg.clip_eps_max)
         return loss, {
             "policy_loss": policy_loss, "value_loss": value_loss,
             "entropy": entropy_term, "rnd_loss": rnd_loss,
-            "approx_kl": (mb["logp"] - logp).mean(), "clip_frac": masked_mean(clipped.float(), corr),
+            "approx_kl": (mb["logp"] - logp).mean(),
+            "clip_frac": masked_mean(clipped.float(), corr, mesh=self.mesh),
             "erc_clip_frac": 1.0 - corr.mean(),
         }

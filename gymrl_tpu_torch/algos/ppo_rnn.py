@@ -35,6 +35,14 @@ from the config, and the dropped counts stay tensors until the caller reads
 the metrics. Every draw comes from ``ts.noise`` in the reference's order:
 per rollout step the action's Gumbels, then the env's draws; then one
 permutation per epoch.
+
+Under a ``mesh`` each data rank steps its share of the envs with their GRU
+hiddens and the reward scaler's per-env returns; the obs statistics and the
+scaler's RMS read the whole batch. Successor values and GAE are computed
+per env column on each rank; the columns the training rows read are then
+gathered, so standardization, the training rows and the epoch permutations
+are the unsharded ones on every rank. Each rank takes its share of each
+minibatch; the masked means sum their active counts over ``data``.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, adam, masked_mean, pack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, adam, assert_flat_tp_ok, masked_mean, pack_fields,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
@@ -203,9 +211,12 @@ class RNNRollout(NamedTuple):
 
 
 class PPORNNTrainer(RecurrentTrainer):
-    def __init__(self, cfg: PPORNNConfig, device: str | torch.device = "cuda"):
-        super().__init__(cfg, device)
-        self.venv = make_vec(cfg.env_name, cfg.num_envs)
+    def __init__(self, cfg: PPORNNConfig, device: str | torch.device = "cuda", mesh=None):
+        if cfg.flat_optimizer:
+            assert_flat_tp_ok(mesh)
+        super().__init__(cfg, device, mesh)
+        self._check_split(cfg.n_train_items // cfg.num_minibatches, "seq_minibatch")
+        self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
 
@@ -219,15 +230,15 @@ class PPORNNTrainer(RecurrentTrainer):
         generator on the trainer's device."""
         cfg, dev = self.cfg, self.device
         net = self.make_net(torch.Generator().manual_seed(seed)).to(dev)
-        noise = Noise(dev, seed)
+        noise = self._noise(seed)
         return RNNTrainState(
             params=net,
             opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
                            foreach=cfg.flat_optimizer),
             vec_state=self.venv.reset(noise),
-            hidden=torch.zeros(cfg.num_envs, net.rnn_size, device=dev),
+            hidden=torch.zeros(self.local_envs, net.rnn_size, device=dev),
             obs_rms=rms_init((self.obs_dim,), dev),
-            reward_scaler=reward_scaler_init(cfg.num_envs, cfg.gamma, dev),
+            reward_scaler=reward_scaler_init(self.local_envs, cfg.gamma, dev),
             noise=noise,
             env_steps=0,
         )
@@ -280,11 +291,11 @@ class PPORNNTrainer(RecurrentTrainer):
             action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
             logp, _ = categorical_logp_entropy(logits, action)
             vec_state, tr = self.venv.step(vec_state, action, noise)
-            if cfg.normalize_obs:
-                obs_rms = rms_update_batch(obs_rms, tr.next_obs)
+            if cfg.normalize_obs:  # statistics of the whole env batch
+                obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
             reward = tr.reward
             if cfg.scale_rewards:
-                scaler, reward = reward_scaler_step(scaler, tr.reward)
+                scaler, reward = reward_scaler_step(scaler, tr.reward, self._gather)
                 scaler = reward_scaler_reset(scaler, tr.done)
             h_post = hidden
             hidden = torch.where(tr.done[:, None], 0.0, hidden)  # a new episode starts fresh
@@ -316,6 +327,11 @@ class PPORNNTrainer(RecurrentTrainer):
                 roll.reward, roll.value, next_values.reshape(roll.value.shape),
                 roll.terminated, roll.done, cfg.gamma, cfg.gae_lambda,
             )
+            if self.mesh is not None:  # the columns the training rows read
+                obs, action, logp, h_pre, done, adv, v_target, stats = self._gather(
+                    (roll.obs, roll.action, roll.logp, roll.h_pre, roll.done, adv, v_target,
+                     stats), axis=1)
+                roll = roll._replace(obs=obs, action=action, logp=logp, h_pre=h_pre, done=done)
             data, pack_metrics = self._training_data(roll, standardize(adv), v_target)
             # one [n, F] matrix: each epoch's shuffle is one row gather
             packed, spec = pack_fields(data)
@@ -369,15 +385,15 @@ class PPORNNTrainer(RecurrentTrainer):
         surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
         min_surr = torch.minimum(surr1, surr2)
         policy_obj = torch.where(adv < 0.0, torch.maximum(min_surr, cfg.dual_clip * adv), min_surr)
-        policy_loss = -masked_mean(policy_obj, mask)
-        value_loss = masked_mean(torch.square(values - mb["v_target"]), mask)
-        entropy_mean = masked_mean(entropy, mask)
+        policy_loss = -masked_mean(policy_obj, mask, mesh=self.mesh)
+        value_loss = masked_mean(torch.square(values - mb["v_target"]), mask, mesh=self.mesh)
+        entropy_mean = masked_mean(entropy, mask, mesh=self.mesh)
         loss = policy_loss + cfg.value_coef * value_loss - cfg.entropy_coef * entropy_mean
         return loss, {
             "policy_loss": policy_loss,
             "value_loss": value_loss,
             "entropy": entropy_mean,
-            "approx_kl": masked_mean(mb["logp"] - logp, mask),
+            "approx_kl": masked_mean(mb["logp"] - logp, mask, mesh=self.mesh),
         }
 
     def _finish(self, ts: RNNTrainState, carry, stats, metrics):

@@ -27,14 +27,33 @@ an object with these methods that replays the JAX reference's own key
 splits, and compare the two frameworks draw for draw. A method is asked for
 where the reference splits the key it draws from, so the order of the calls
 is the order of the reference's splits.
+
+``ShardedNoise`` is one data rank's view of a noise source that every rank
+of a mesh holds, seeded the same: a draw for rows of the env batch or of a
+learner minibatch (a method marked ``@per_row`` here) is made at the global
+shape and the rank keeps its own rows, so a sharded run draws exactly what
+the unsharded run draws. Every unmarked draw is global.
 """
 
 from __future__ import annotations
 
 import torch
 
+from gymrl_tpu_torch.distributed.mesh import map_tensors
+
 # float32 tiny: the lower end of jax.random.gumbel's uniform (mode "low").
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def per_row(rows_arg: int):
+    """Marks a draw whose leading axis is rows of the env batch or of a
+    minibatch share; argument ``rows_arg`` is their count or the draw's
+    shape. ``ShardedNoise`` makes such a draw for every rank's rows and
+    keeps its own."""
+    def mark(fn):
+        fn.rows_arg = rows_arg
+        return fn
+    return mark
 
 
 class Noise:
@@ -54,6 +73,7 @@ class Noise:
                              device=self.device, dtype=torch.int32)
 
     # -- what the main path asks for -----------------------------------------
+    @per_row(0)
     def gumbel(self, shape) -> torch.Tensor:
         """Standard Gumbel, ``-log(-log(u))`` with ``u ~ U[tiny, 1)``, as
         ``jax.random.gumbel`` computes it."""
@@ -81,6 +101,7 @@ class Noise:
         asked for after the epochs' permutations."""
         return self.uniform((epochs, minibatches, size))
 
+    @per_row(0)
     def explore(self, num: int, n_actions: int) -> tuple[torch.Tensor, torch.Tensor]:
         """ε-greedy draws: ``U[0, 1)[num]`` to compare with ε, and random
         int32 actions in ``[0, n_actions)``."""
@@ -94,14 +115,17 @@ class Noise:
     def normal(self, shape) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device)
 
+    @per_row(0)
     def action_noise(self, shape) -> torch.Tensor:
         """Standard normals for acting: DDPG/TD3 exploration, the SAC sample."""
         return self.normal(shape)
 
+    @per_row(0)
     def target_noise(self, shape) -> torch.Tensor:
         """Standard normals for TD3's target-policy smoothing."""
         return self.normal(shape)
 
+    @per_row(0)
     def sac_update_noise(self, shape) -> tuple[torch.Tensor, torch.Tensor]:
         """The SAC update's two samples: for the next-state target, then for
         the actor loss."""
@@ -123,6 +147,7 @@ class Noise:
         parts = flat.split(sizes, dim=-1)
         return list(zip(parts[0::2], parts[1::2]))
 
+    @per_row(1)
     def noisy_act(self, layers, rows: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """The ε of one acting forward: an independent draw per batch row."""
         return self._noisy_eps(layers, rows)
@@ -132,9 +157,11 @@ class Noise:
         on next_obs for the double-DQN argmax), each shared by the batch."""
         return [self._noisy_eps(layers, None) for _ in range(count)]
 
+    @per_row(1)
     def env_reset(self, env, num: int):
         return env.reset_draws(self, num)
 
+    @per_row(1)
     def env_step(self, env, num: int):
         return env.step_draws(self, num)
 
@@ -144,3 +171,43 @@ class Noise:
 
     def load_state_dict(self, state: dict) -> None:
         self.generator.set_state(state["generator"])
+
+
+class ShardedNoise:
+    """Data rank ``rank`` of ``size``'s view of ``inner`` (a ``Noise``, or
+    any object with its methods, such as a test's replay of the JAX keys).
+
+    A draw that ``Noise`` marks ``@per_row`` (the Gumbels and the ε-greedy,
+    exploration, NoisyNet-acting and env draws of the env batch, and the
+    target-smoothing and SAC-update normals of a minibatch share) is asked
+    of ``inner`` for ``n·size`` rows, of which this rank keeps rows
+    ``[rank·n, (rank+1)·n)``. Every other draw (permutations, clip-cov
+    uniforms, replay indices, PER uniforms, an update's shared NoisyNet ε)
+    is global: every rank makes it whole, as the unsharded trainer does. So
+    every rank's ``inner`` advances exactly as the unsharded trainer's, and
+    its state (a checkpoint's) is the inner source's, the same on every
+    rank."""
+
+    def __init__(self, inner, rank: int, size: int):
+        self.inner = inner
+        self.rank = rank
+        self.size = size
+
+    def __getattr__(self, name: str):
+        if name == "inner":  # not set yet (a copy in progress)
+            raise AttributeError(name)
+        draw = getattr(self.inner, name)
+        at = getattr(getattr(Noise, name, None), "rows_arg", None)
+        if at is None:
+            return draw
+
+        def share(*args):
+            args = list(args)
+            rows = args[at]
+            if isinstance(rows, int):
+                n, args[at] = rows, rows * self.size
+            else:
+                n, args[at] = rows[0], (rows[0] * self.size,) + tuple(rows[1:])
+            start = self.rank * n
+            return map_tensors(lambda x: x[start:start + n], draw(*args))
+        return share

@@ -93,11 +93,14 @@ def reward_scaler_init(num_envs: int, gamma: float,
     )
 
 
-def reward_scaler_step(scaler: RewardScaler, reward: torch.Tensor) -> tuple[RewardScaler, torch.Tensor]:
+def reward_scaler_step(scaler: RewardScaler, reward: torch.Tensor,
+                       gather=None) -> tuple[RewardScaler, torch.Tensor]:
     """Update R ← γR + r per instance, fold the R batch into the stats, emit
-    r/(std+1e-8) (divide-only, no mean subtraction)."""
+    r/(std+1e-8) (divide-only, no mean subtraction). Under a mesh ``ret``
+    holds this rank's envs and ``gather`` returns every rank's, so the
+    statistics are those of the whole batch."""
     ret = scaler.gamma * scaler.ret + reward
-    rms = rms_update_batch(scaler.rms, ret)
+    rms = rms_update_batch(scaler.rms, ret if gather is None else gather(ret))
     scaled = reward / (rms.std + 1e-8)
     return RewardScaler(rms=rms, ret=ret, gamma=scaler.gamma), scaled
 

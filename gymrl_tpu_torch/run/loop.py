@@ -71,7 +71,7 @@ class TrainLoop:
             ts = trainer.init(seed)
             if load_model:
                 try:
-                    ts = restore_checkpoint(self.ckpt_path, ts)
+                    ts = restore_checkpoint(self.ckpt_path, ts, trainer.mesh)
                     logger.info(f"restored checkpoint from {self.ckpt_path}")
                 except FileNotFoundError:
                     logger.warning(f"no checkpoint at {self.ckpt_path}; training from scratch")
@@ -121,7 +121,7 @@ class TrainLoop:
                     logger.info(f"eval: {mean_r:.1f} over {self.eval_episodes} episodes")
                 if env_steps >= next_save:
                     next_save += self.save_every
-                    save_checkpoint(self.ckpt_path, ts)
+                    save_checkpoint(self.ckpt_path, ts, trainer.mesh)
 
                 if (
                     solve_threshold is not None
@@ -137,7 +137,7 @@ class TrainLoop:
             logger.info("interrupted — running final evaluation")
 
         if self.save_every:
-            save_checkpoint(self.ckpt_path, ts)
+            save_checkpoint(self.ckpt_path, ts, trainer.mesh)
         return ts, {
             "episodes": episodes,
             "env_steps": ts.env_steps,
