@@ -4,15 +4,17 @@
 
 Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
 ported family (off-policy, DQN, recurrent, mHC, tabular, pixels) on the card,
-then the distributed layer and the profiling hooks, and checks what comes
-out. Every phase raises on failure; the script exits 0
+then the distributed layer, the profiling hooks and the hand-written lander
+kernels against their plain versions, and checks what comes out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
   0. Device: a CUDA device must be present; prints ``nvidia-smi``'s name
      and power limit for the card.
   1. Physics: B=8192 lander states, made by rolling the port on the CPU
      with random actions until about 40% of them touch the ground, are
-     stepped once on the card and once on the CPU with the same actions
+     stepped once on the card (the ``lander_step`` kernel, which this first
+     lander step on the card builds with nvcc; ``build_s`` is printed after
+     the phase) and once on the CPU (the plain path) with the same actions
      and dispersion draws. Kinematics and rewards must agree to 1e-4; at
      most 8 of the 8192 envs may differ more, or in their contact and
      termination flags (a contact test that ties within float32 rounding
@@ -204,10 +206,36 @@ only if all of them pass.
      union of kernel intervals over the iteration's wall time, traced and
      untraced); ``Throughput`` over two untraced bench iterations must read
      within 10% of the wall-clock rate.
-  Last, the kernels: the port has no hand-written kernel (the JAX package
-  has no Pallas kernel to port), so the kernel list is empty.
+ 18. The lander kernels (``gymrl_tpu_torch/kernels/lunarlander.cu``)
+     against the plain path on the card, from the same inputs, at every
+     batch the main path gives them (32, 64 and 8192 envs: the lander CLI
+     workloads' and the bench config's, ``kernel_envs``): (a)
+     ``lander_reset`` against ``reset_from_plain``, wind off and on; (b)
+     ``lander_step`` against ``step_from_plain`` from every state of a
+     200-step random-action ``VecEnv`` rollout on the kernels (discrete and
+     continuous, each without and with wind; by step
+     ~90 about 40% of the landers touch the ground, and crashes, landings
+     and autoresets follow). Every float field, the obs and the reward must
+     agree to 1e-6 and at most 8 envs may differ more or in a flag (phase 1's
+     tie rule); the card reads 0 everywhere. (c) ms per call of each kernel
+     and of its plain version (CUDA events over 100 calls after a warm-up),
+     the device's time per kernel and kernels per call (traces), and the
+     bound: the bytes the function must read and write (without wind the
+     step reads no wind index and no leg contact) over 3.35 TB/s or the
+     operations over 67 TFLOP/s, the larger. (d) The CUDA launches of one lander
+     ``VecEnv.step`` at 8192 envs under ``utils.profiling.trace``: at most 60.
+     (e) With nvcc missing, and with an nvcc that refuses the source (a
+     stand-in script), a lander step on the card raises and launches
+     nothing: no fallback to the plain path.
+  Phases 2, 3, 11 and 13 run with the kernels' launch counts set to 0 just
+  before them, and fail unless both lander kernels launched in them.
+  ``phase_kernels_each_card`` (not in ``main``, which needs one card) runs
+  18 (a)-(b) on every other card of a machine with more, PyTorch's current
+  device left on the first.
 
-The line before the last is the kernel list; the last line of output is
+The line before the last is the kernel list: each kernel's launches in
+phase 2 (the bench config), its largest error against the plain path in
+phase 18, and its times and bound at 8192 envs. The last line of output is
 one JSON object naming the device.
 """
 
@@ -491,15 +519,27 @@ def compare_env_step(env, device: torch.device, num: int, warm_steps: int, atol:
     if device.type == "cuda":
         torch.cuda.synchronize()
 
-    err = torch.zeros(num, dtype=torch.float64)
-    flags_differ = torch.zeros(num, dtype=torch.bool)
-    max_err, flag_counts = {}, {}
-    fields = [(name, got, want) for (name, got), (_, want)
+    fields = [(name, got.cpu(), want) for (name, got), (_, want)
               in zip(_leaves(on_dev.state), _leaves(cpu.state))]
-    fields += [("reward", on_dev.reward, cpu.reward), ("terminated", on_dev.terminated, cpu.terminated),
-               ("truncated", on_dev.truncated, cpu.truncated)]
-    for name, got, want in fields:
-        got = got.cpu()
+    fields += [("reward", on_dev.reward.cpu(), cpu.reward),
+               ("terminated", on_dev.terminated.cpu(), cpu.terminated),
+               ("truncated", on_dev.truncated.cpu(), cpu.truncated)]
+    name = env.name + (" (continuous)" if getattr(env, "continuous", False) else "")
+    return {"env": name, "envs": num, "atol": atol,
+            **_field_diff(fields, num, atol, max_ties, label=f"{name} step")}
+
+
+def _field_diff(pairs, num: int, atol: float, max_ties: int = PHYS_MAX_TIES,
+                label: str = "") -> dict:
+    """Two batches field by field, from (name, got, want) tensors on one device:
+    each float field's largest error, each exact field's count of envs apart,
+    and the ties (envs apart in a flag or by more than ``atol``). Raises when
+    more than ``max_ties`` envs tie or an env outside them is off by more."""
+    err = torch.zeros(num, dtype=torch.float64, device=pairs[0][1].device)
+    flags_differ = torch.zeros(num, dtype=torch.bool, device=err.device)
+    max_err, flag_counts = {}, {}
+    for name, got, want in pairs:
+        want = want.expand_as(got)
         if want.is_floating_point():
             e = (got.double() - want.double()).abs().reshape(num, -1).amax(dim=1)
             max_err[name] = float(e.max())
@@ -509,16 +549,11 @@ def compare_env_step(env, device: torch.device, num: int, warm_steps: int, atol:
             flag_counts[name] = int(d.sum())
             flags_differ |= d
     ties = flags_differ | (err > atol)
-    result = {
-        "env": env.name + (" (continuous)" if getattr(env, "continuous", False) else ""),
-        "envs": num, "atol": atol, "max_abs_err": max_err,
-        "max_abs_err_outside_ties": float(err[~ties].max()),
-        "flags_differ": flag_counts, "ties": int(ties.sum()),
-    }
-    if result["ties"] > max_ties:
-        raise AssertionError(f"{result}: {result['ties']} envs disagree (allowed {max_ties})")
-    if not result["max_abs_err_outside_ties"] <= atol:
-        raise AssertionError(f"{result}: step differs by {result['max_abs_err_outside_ties']}")
+    outside = float(err[~ties].max()) if bool((~ties).any()) else 0.0
+    result = {"max_abs_err": max_err, "max_abs_err_outside_ties": outside,
+              "flags_differ": flag_counts, "ties": int(ties.sum())}
+    if result["ties"] > max_ties or not outside <= atol:
+        raise AssertionError(f"{label}: {result}")
     return result
 
 
@@ -2417,9 +2452,12 @@ def phase_distributed(device: torch.device, cases=DIST_CASES, one_case: str = "b
                       world: int = 2, backend: str = "gloo") -> dict:
     """Phase 16: the NCCL world of one, then ``world`` ranks (two sharing the
     card over gloo; on a machine with more cards, one per card over NCCL).
+    Each case keeps its ``model`` axis and gives ``data`` the other ranks.
     (A CPU rehearsal passes ``device`` cpu: gloo then runs both worlds.)"""
     from gymrl_tpu_torch.distributed.launch import run_world
     from gymrl_tpu_torch.utils.checkpoint import flat_state
+
+    cases = tuple((name, world // n_model, n_model) for name, _, n_model in cases)
 
     cuda = device.type == "cuda"
     rank_device = None if cuda else "cpu"
@@ -2533,6 +2571,331 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
     return results
 
 
+# -- phase 18: the lander kernels against the plain path on the card ---------------
+KERNEL_STEPS = 200
+KERNEL_ATOL = 1e-6
+KERNEL_TIMED_CALLS = 100
+VECENV_STEP_MAX_LAUNCHES = 60
+# Float32 operations per env, counted in lunarlander.cu (discrete, no wind; each add,
+# multiply, compare, select, division, square root and sin/cos/tanh as one): the
+# 10-sweep x 4-point contact solve is 1,960 of the step's; wind adds ~30 to each.
+STEP_OPS_PER_ENV = 2580
+RESET_OPS_PER_ENV = 95
+H100_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
+H100_F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
+
+
+def _step_pairs(k, p) -> list:
+    pairs = [(f, getattr(k.state, f), getattr(p.state, f)) for f in k.state._fields]
+    return pairs + [("obs", k.obs, p.obs), ("reward", k.reward, p.reward),
+                    ("terminated", k.terminated, p.terminated),
+                    ("truncated", k.truncated, p.truncated)]
+
+
+def _merge_diff(acc: dict, r: dict) -> None:
+    for key in ("max_abs_err", "flags_differ"):
+        for f, v in r[key].items():
+            acc[key][f] = max(acc[key].get(f, v), v)
+    acc["max_abs_err_outside_ties"] = max(acc["max_abs_err_outside_ties"],
+                                          r["max_abs_err_outside_ties"])
+    acc["max_ties"] = max(acc["max_ties"], r["ties"])
+
+
+def _per_call_ms(device: torch.device, fn, calls: int = KERNEL_TIMED_CALLS) -> float:
+    """Milliseconds per call over ``calls`` back-to-back calls after a warm-up:
+    CUDA events on the card, the host clock on the CPU."""
+    for _ in range(3):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _traced_kernels(device: torch.device, fn, calls: int) -> tuple[float, float]:
+    """(CUDA kernels the trace holds per call, their device ms per kernel)."""
+    from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device) as prof:
+            for _ in range(calls):
+                fn()
+    stats = kernel_stats(prof)
+    return stats["kernels"] / calls, stats["kernel_ms"] / max(stats["kernels"], 1)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def kernel_envs() -> tuple[int, ...]:
+    """The lander batches the main path gives the kernels: the bench config
+    (phase 2) and the five lander CLI workloads (phases 3, 11 and 13)."""
+    from gymrl_tpu_torch.algos.ppg import ppg_rnn_lunarlander_config
+    from gymrl_tpu_torch.algos.ppo import PPOConfig
+    from gymrl_tpu_torch.algos.ppo_full import PPOFullConfig
+    from gymrl_tpu_torch.algos.ppo_lstm import PPOLSTMConfig
+    from gymrl_tpu_torch.algos.ppo_rnn import ppo_rnn_lunarlander_config
+    from gymrl_tpu_torch.bench import BENCH_CONFIG
+
+    cfgs = (BENCH_CONFIG, PPOConfig(), ppo_rnn_lunarlander_config(),
+            ppg_rnn_lunarlander_config(), PPOFullConfig(), PPOLSTMConfig())
+    return tuple(sorted({c.num_envs for c in cfgs}))
+
+
+def _check_kernels(device: torch.device, envs, steps: int = KERNEL_STEPS) -> dict:
+    """Phase 18 (a)-(b): each kernel against its plain version on ``device``,
+    from the same inputs, at each batch of ``envs``."""
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.envs.lunarlander import LunarLander
+    from gymrl_tpu_torch.envs.rollout import VecEnv
+    from gymrl_tpu_torch.kernels.lunarlander import lander_reset, lander_step
+
+    out = {"reset": [], "step": []}
+    # (a) the reset, wind off and on
+    for num in envs:
+        for wind in (False, True):
+            env = LunarLander(enable_wind=wind)
+            params = env.default_params()
+            draws = env.reset_draws(Noise(device, 3), num)
+            (ks, ko), (ps, po) = lander_reset(params, draws), env.reset_from_plain(params, draws)
+            pairs = [(f, getattr(ks, f), getattr(ps, f)) for f in ks._fields] + [("obs", ko, po)]
+            r = _field_diff(pairs, num, KERNEL_ATOL, label=f"reset {num} wind={wind}")
+            r.update(envs=num, wind=wind)
+            log("phase 18 reset: " + json.dumps(r))
+            out["reset"].append(r)
+
+    # (b) the step, from every state of a random-action rollout on the kernels
+    for num in envs:
+        for continuous, wind in ((False, False), (False, True), (True, False), (True, True)):
+            env = LunarLander(continuous=continuous, enable_wind=wind)
+            params = env.default_params()
+            venv = VecEnv(env, params, num)
+            noise = Noise(device, 0)
+            gen = torch.Generator().manual_seed(1)
+            vs = venv.reset(noise)
+            acc = {"max_abs_err": {}, "flags_differ": {}, "max_abs_err_outside_ties": 0.0,
+                   "max_ties": 0}
+            in_contact, terminated, truncated = [], 0, 0
+            for i in range(steps):
+                a = _random_actions(env, num, gen).to(device)
+                disp = env.step_draws(noise, num)
+                k = lander_step(params, vs.env_state, a, disp, continuous=continuous)
+                p = env.step_from_plain(params, vs.env_state, a, disp)
+                _merge_diff(acc, _field_diff(_step_pairs(k, p), num, KERNEL_ATOL,
+                                             label=f"step {i} of {num} continuous={continuous}"))
+                in_contact.append(int(p.state.leg_contact.any(dim=1).sum()))
+                terminated += int(p.terminated.sum())
+                truncated += int(p.truncated.sum())
+                vs, _ = venv.step(vs, a, noise)
+            acc.update(envs=num, continuous=continuous, wind=wind, steps=steps,
+                       in_contact_max=max(in_contact), in_contact_last=in_contact[-1],
+                       terminated=terminated, truncated=truncated)
+            log("phase 18 step: " + json.dumps(acc))
+            out["step"].append(acc)
+    return out
+
+
+def phase_kernels(device: torch.device, envs=None, steps: int = KERNEL_STEPS,
+                  timed_calls: int = KERNEL_TIMED_CALLS) -> dict:
+    """Phase 18: ``lander_reset`` / ``lander_step`` against ``reset_from_plain``
+    / ``step_from_plain`` on the same device and inputs; their times; the
+    launches of one lander ``VecEnv.step``; no fallback when nvcc fails."""
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.envs.lunarlander import LunarLander
+    from gymrl_tpu_torch.envs.rollout import VecEnv
+    from gymrl_tpu_torch.kernels.lunarlander import lander_reset, lander_step
+
+    envs = envs or kernel_envs()
+    out = {**_check_kernels(device, envs, steps), "time": [], "vecenv_step": None,
+           "no_fallback": None}
+    # (c) times: per call (CUDA events), and the device's kernel time per call (trace)
+    for num in envs:
+        env = LunarLander()
+        params = env.default_params()
+        noise = Noise(device, 5)
+        draws = env.reset_draws(noise, num)
+        state, _ = lander_reset(params, draws)
+        a = torch.randint(0, 4, (num,), dtype=torch.int32, device=device)
+        disp = env.step_draws(noise, num)
+        k = lander_step(params, state, a, disp)
+        # without wind the step reads no wind index and no leg contact, and passes
+        # the wind indices through; terrain is read and passed through
+        unread = () if params.enable_wind else ("wind_idx", "torque_idx", "leg_contact")
+        passed = ("terrain",) + (() if params.enable_wind else ("wind_idx", "torque_idx"))
+        step_bytes = _nbytes(*(x for f, x in zip(state._fields, state) if f not in unread),
+                             a, disp,
+                             *(x for f, x in zip(k.state._fields, k.state) if f not in passed),
+                             k.obs, k.reward, k.terminated, k.truncated)
+        ks, ko = lander_reset(params, draws)
+        reset_bytes = _nbytes(*draws, *ks, ko)
+        for name, kernel, plain, nbytes, ops in (
+            ("lunarlander_step", lambda: lander_step(params, state, a, disp),
+             lambda: env.step_from_plain(params, state, a, disp), step_bytes,
+             STEP_OPS_PER_ENV * num),
+            ("lunarlander_reset", lambda: lander_reset(params, draws),
+             lambda: env.reset_from_plain(params, draws), reset_bytes, RESET_OPS_PER_ENV * num),
+        ):
+            bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+            r = {"kernel": name, "envs": num, "ms": _per_call_ms(device, kernel, timed_calls),
+                 "plain_ms": _per_call_ms(device, plain, timed_calls),
+                 "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            if device.type == "cuda":  # the device's own time, from traces
+                launches, per_kernel = _traced_kernels(device, kernel, timed_calls)
+                plain_launches, plain_per_kernel = _traced_kernels(device, plain, 5)
+                r.update(device_ms=per_kernel, traced_launches_per_call=launches,
+                         plain_device_ms=plain_per_kernel * plain_launches,
+                         plain_launches_per_call=plain_launches)
+            log("phase 18 time: " + json.dumps(r))
+            out["time"].append(r)
+
+    # (d) CUDA launches of one lander VecEnv.step at the bench config's batch
+    if device.type == "cuda":
+        from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
+
+        num = envs[-1]
+        env = LunarLander()
+        venv = VecEnv(env, env.default_params(), num)
+        noise = Noise(device, 7)
+        vs = venv.reset(noise)
+        a = torch.randint(0, 4, (num,), dtype=torch.int32, device=device)
+        vs, _ = venv.step(vs, a, noise)  # warm-up
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp, device) as prof:
+                vs, _ = venv.step(vs, a, noise)
+        launches = kernel_stats(prof)["kernels"]
+        out["vecenv_step"] = {"envs": num, "launches": launches}
+        log("phase 18 VecEnv.step: " + json.dumps(out["vecenv_step"]))
+        if launches > VECENV_STEP_MAX_LAUNCHES:
+            raise AssertionError(f"one lander VecEnv.step launched {launches} kernels")
+        out["no_fallback"] = _no_fallback(device)
+        log("phase 18 compiler failing: " + json.dumps(out["no_fallback"]))
+    return out
+
+
+def _no_fallback(device: torch.device) -> dict:
+    """Phase 18 (e): with nvcc missing, and with an nvcc that refuses the
+    source, a lander step on the card raises ``KernelCompileError`` and
+    launches nothing: there is no plain fallback."""
+    from gymrl_tpu_torch import kernels
+    from gymrl_tpu_torch.core.noise import Noise
+    from gymrl_tpu_torch.envs.lunarlander import LunarLander
+    from gymrl_tpu_torch.kernels import build
+    from gymrl_tpu_torch.kernels import lunarlander as kl
+
+    env = LunarLander()
+    params = env.default_params()
+    noise = Noise(device, 9)
+    state, _ = env.reset_from(params, env.reset_draws(noise, 64))
+    action = torch.zeros(64, dtype=torch.int32, device=device)
+    disp = env.step_draws(noise, 64)
+    env_saved = {k: os.environ.get(k) for k in ("PATH", "CUDA_HOME")}
+    saved = (build.BUILD_DIR, dict(build._LOADED), kl._LIB)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        fake = os.path.join(tmp, "refusing", "bin", "nvcc")
+        os.makedirs(os.path.dirname(fake))
+        with open(fake, "w") as f:
+            f.write('#!/bin/sh\n[ "$1" = --version ] && { echo fake; exit 0; }\n'
+                    'echo "error: refused" >&2\nexit 1\n')
+        os.chmod(fake, 0o755)
+        try:
+            os.environ["PATH"] = ""
+            build.BUILD_DIR = os.path.join(tmp, "_build")
+            for case in ("missing", "refusing"):
+                os.environ["CUDA_HOME"] = os.path.join(tmp, case)
+                build._LOADED.clear()
+                kl._LIB = None
+                launches = dict(kernels.LAUNCHES)
+                try:
+                    env.step_from(params, state, action, disp)
+                except build.KernelCompileError as e:
+                    out[case] = str(e).strip().splitlines()[-1][:160]
+                else:
+                    raise AssertionError(f"nvcc {case}: the lander step returned a result")
+                if kernels.LAUNCHES != launches:
+                    raise AssertionError(f"nvcc {case}: a kernel launched")
+        finally:
+            for k, v in env_saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            build.BUILD_DIR, loaded, kl._LIB = saved
+            build._LOADED.clear()
+            build._LOADED.update(loaded)
+    return out
+
+
+def phase_kernels_each_card(steps: int = KERNEL_STEPS) -> list[dict]:
+    """Phase 18 (a)-(b) on every card but the first, at the main path's
+    smallest batch, with PyTorch's current device left on the first: each
+    launch must reach the card that holds its tensors. For a machine with
+    more than one card; ``main`` needs one."""
+    from gymrl_tpu_torch import kernels
+
+    results = []
+    for index in range(1, torch.cuda.device_count()):
+        device = torch.device("cuda", index)
+        kernels.reset_launches()
+        r = _check_kernels(device, kernel_envs()[:1], steps)
+        r.update(device=str(device), current_device=torch.cuda.current_device(),
+                 launches=dict(kernels.LAUNCHES))
+        if not all(r["launches"].values()):
+            raise AssertionError(f"{device}: a lander kernel did not launch: {r['launches']}")
+        log("phase 18 on another card: " + json.dumps(
+            {k: r[k] for k in ("device", "current_device", "launches")}))
+        results.append(r)
+    if not results:
+        raise AssertionError("one card: phase_kernels_each_card needs more")
+    return results
+
+
+def _on_kernels(label: str, fn, *args, **kw):
+    """Runs a phase that drives lander workloads, the launch counts set to 0
+    just before it; fails unless both lander kernels ran in it."""
+    from gymrl_tpu_torch import kernels
+
+    kernels.reset_launches()
+    result = fn(*args, **kw)
+    counts = dict(kernels.LAUNCHES)
+    log(f"{label} kernel launches: " + json.dumps(counts))
+    if not all(counts.values()):
+        raise AssertionError(f"{label} did not go through every lander kernel: {counts}")
+    return result, counts
+
+
+def kernel_line(counts: dict, phase18: dict) -> dict:
+    """The kernels line: each kernel's launches on the main path (the bench
+    config), its largest error against the plain path, and its times and
+    bound at the bench config's batch."""
+    widest = max(r["envs"] for r in phase18["time"])
+    times = {r["kernel"]: r for r in phase18["time"] if r["envs"] == widest}
+    errs = {
+        "lunarlander_step": max(max(r["max_abs_err"].values()) for r in phase18["step"]),
+        "lunarlander_reset": max(max(r["max_abs_err"].values()) for r in phase18["reset"]),
+    }
+    replaces = {"lunarlander_step": "gymrl_tpu/envs/lunarlander.py:308",
+                "lunarlander_reset": "gymrl_tpu/envs/lunarlander.py:263"}
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": "gymrl_tpu_torch/kernels/lunarlander.cu",
+         "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
+         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+         "library_ms": None}
+        for name in ("lunarlander_step", "lunarlander_reset")]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
@@ -2554,9 +2917,12 @@ def main() -> int:
         phase_s[str(number)] = phase_s.get(str(number), 0.0) + time.perf_counter() - t0
         return out
 
-    timed(1, phase_physics, device)
-    timed(2, phase_bench, device)
-    timed(3, phase_entry, device)
+    from gymrl_tpu_torch.kernels import build
+
+    timed(1, phase_physics, device)  # the first lander step on the card builds the kernels
+    log("build_s: " + json.dumps(build.BUILD_SECONDS))
+    _, main_path = timed(2, _on_kernels, "phase 2", phase_bench, device)
+    timed(3, _on_kernels, "phase 3", phase_entry, device)
     timed(4, phase_classic, device)
     timed(5, phase_updates, device)
     timed(6, phase_workloads, device)
@@ -2567,10 +2933,10 @@ def main() -> int:
     timed(10, phase_pack, device)
     timed(10, phase_seq_forward, device)
     timed(10, phase_rnn_updates, device)
-    timed(11, phase_rnn_workloads, device)
+    timed(11, _on_kernels, "phase 11", phase_rnn_workloads, device)
     timed(12, phase_mhc_pieces, device)
     timed(12, phase_mhc_updates, device)
-    timed(13, phase_mhc_workloads, device)
+    timed(13, _on_kernels, "phase 13", phase_mhc_workloads, device)
     timed(14, phase_tabular_envs, device)
     timed(14, phase_tabular_steps, device)
     timed(14, phase_tabular_workloads, device)
@@ -2584,9 +2950,10 @@ def main() -> int:
     timed(15, phase_render, device)
     timed(16, phase_distributed, device)
     timed(17, phase_profile, device)
+    phase18 = timed(18, phase_kernels, device)
     log("phase_s: " + json.dumps(phase_s))
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
-    log(json.dumps({"kernels": []}))
+    log(json.dumps(kernel_line(main_path, phase18)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

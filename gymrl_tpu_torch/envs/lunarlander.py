@@ -16,6 +16,12 @@ Random draws are arguments, not side effects:
     dispersion ``disp[B, 2]``.
 ``reset_draws`` / ``step_draws`` make those draws from a ``Noise``.
 
+On a CUDA device ``reset_from`` and ``step_from`` launch the hand-written
+kernels of ``gymrl_tpu_torch/kernels/lunarlander.cu`` (one thread per env);
+elsewhere they run the plain PyTorch path, ``reset_from_plain`` /
+``step_from_plain``, which the kernels match op for op and which the tests
+hold to the JAX engine.
+
 ``continuous=True`` gives the Box(2) variant: actions ``[B, 2]`` in ±1, main
 throttle in [0.5, 1] when ``a[0] > 0``, side throttle in [0.5, 1] only when
 ``|a[1]| > 0.5``, fired on the side of ``sign(a[1])``.
@@ -86,8 +92,15 @@ LINEAR_SLOP = 0.005
 SLEEP_LIN_TOL = 0.01  # m/s (b2_linearSleepTolerance)
 SLEEP_ANG_TOL = 2.0 / 180.0 * np.pi  # rad/s (b2_angularSleepTolerance)
 TIME_TO_SLEEP = 0.5  # s
+MAX_CORRECTION = 0.2  # largest Baumgarte push per step
+WIND_FREQ = 0.02  # wind and turbulence: tanh(sin(WIND_FREQ·i) + sin(WIND_FREQ_PI·i))
+WIND_FREQ_PI = math.pi * 0.01
+TERRAIN_SMOOTH = 0.33  # the reference's 3-tap terrain smoothing weight
+MAIN_FUEL = 0.30  # reward cost per step of each engine at full power
+SIDE_FUEL = 0.03
 
 _DX = W / (CHUNKS - 1)
+_X_MAX = CHUNKS - 1 - 1e-6  # the terrain lookup's clamp, in chunk units
 # Helipad chunk indices flattened at reset (CHUNKS // 2 ± 2, inclusive).
 _PAD = (np.arange(CHUNKS + 1) >= CHUNKS // 2 - 2) & (np.arange(CHUNKS + 1) <= CHUNKS // 2 + 2)
 
@@ -155,6 +168,12 @@ def _make_consts(device: torch.device) -> _Consts:
     )
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a lander batch runs on the kernels (a CUDA tensor) or on the
+    plain path."""
+    return x.is_cuda
+
+
 def _body_points(pos, c, s, lx, ly):
     """World coordinates ``[B, P]`` of body-frame points (lx, ly)[P]:
     ``pos + R(angle) @ p``, as the reference's ``pos + p @ R.T``."""
@@ -170,7 +189,7 @@ def _segment_lookup(terrain: torch.Tensor, x: torch.Tensor):
     ``torch.gather`` in place of the reference's one-hot contraction, which
     its docstring states is bit-identical to plain indexing.
     """
-    xi = torch.clamp(x / _DX, 0.0, CHUNKS - 1 - 1e-6)
+    xi = torch.clamp(x / _DX, 0.0, _X_MAX)
     i0 = torch.floor(xi)
     frac = xi - i0
     idx = i0.long()
@@ -262,7 +281,15 @@ class LunarLander(Env):
 
     # -- reset -----------------------------------------------------------------
     def reset_from(self, params: LunarLanderParams, draws: ResetDraws):
-        """Pure batched reset: terrain smoothing with the ``height[-1]``
+        """Pure batched reset: the ``lander_reset`` kernel on a CUDA device,
+        ``reset_from_plain`` elsewhere."""
+        if _on_card(draws.height_u):
+            from gymrl_tpu_torch.kernels.lunarlander import lander_reset
+            return lander_reset(params, draws)
+        return self.reset_from_plain(params, draws)
+
+    def reset_from_plain(self, params: LunarLanderParams, draws: ResetDraws):
+        """The plain batched reset: terrain smoothing with the ``height[-1]``
         wraparound quirk, the initial-force body, and the reset step."""
         height = draws.height_u
         dev = height.device
@@ -270,7 +297,7 @@ class LunarLander(Env):
         num = height.shape[0]
         height = torch.where(c.pad, HELIPAD_Y, height)
         prev = torch.roll(height, 1, dims=1)[:, :CHUNKS]  # i=0 → height[-1]
-        smooth = 0.33 * (prev + height[:, :CHUNKS] + height[:, 1:])
+        smooth = TERRAIN_SMOOTH * (prev + height[:, :CHUNKS] + height[:, 1:])
 
         zeros = torch.zeros(num, device=dev)
         zeros_i = torch.zeros(num, dtype=torch.int32, device=dev)
@@ -296,7 +323,18 @@ class LunarLander(Env):
     # -- step ------------------------------------------------------------------
     def step_from(self, params: LunarLanderParams, state: LunarLanderState,
                   action: torch.Tensor, disp: torch.Tensor) -> StepResult:
-        """Pure batched step; ``disp[B, 2]`` is the U(-1, 1) dispersion draw."""
+        """Pure batched step; ``disp[B, 2]`` is the U(-1, 1) dispersion draw.
+        The ``lander_step`` kernel on a CUDA device, ``step_from_plain``
+        elsewhere."""
+        if _on_card(state.angle):
+            from gymrl_tpu_torch.kernels.lunarlander import lander_step
+            return lander_step(params, state, action, disp, continuous=self.continuous,
+                               max_steps=self.max_steps)
+        return self.step_from_plain(params, state, action, disp)
+
+    def step_from_plain(self, params: LunarLanderParams, state: LunarLanderState,
+                        action: torch.Tensor, disp: torch.Tensor) -> StepResult:
+        """The plain batched step, eager PyTorch on any device."""
         return self._physics_step(params, state, action, disp)
 
     def _physics_step(self, params: LunarLanderParams, state: LunarLanderState,
@@ -315,10 +353,10 @@ class LunarLander(Env):
             wi = wind_idx.float()
             ti = torque_idx.float()
             wind_mag = torch.tanh(
-                torch.sin(0.02 * wi) + torch.sin(math.pi * 0.01 * wi)
+                torch.sin(WIND_FREQ * wi) + torch.sin(WIND_FREQ_PI * wi)
             ) * params.wind_power
             torque_mag = torch.tanh(
-                torch.sin(0.02 * ti) + torch.sin(math.pi * 0.01 * ti)
+                torch.sin(WIND_FREQ * ti) + torch.sin(WIND_FREQ_PI * ti)
             ) * params.turbulence_power
             dvx = torch.where(airborne, DT * wind_mag / BODY_MASS, 0.0)
             vel = torch.stack([vel[:, 0] + dvx, vel[:, 1]], dim=1)
@@ -448,7 +486,7 @@ class LunarLander(Env):
             t0d, t1d, _ = _segment_lookup(state.terrain, x_deep)
             ndx, ndy = _normal(t0d, t1d)
             n_deep = torch.cat([ndx, ndy], dim=1)  # [B, 2]
-            pos = pos + torch.clamp(corr, 0.0, 0.2)[:, None] * n_deep
+            pos = pos + torch.clamp(corr, 0.0, MAX_CORRECTION)[:, None] * n_deep
 
             # Contact flags after integration (obs + next-step wind gating):
             # leg corners and hull vertices in one terrain lookup.
@@ -482,7 +520,7 @@ class LunarLander(Env):
             return StepResult(new_state, obs, None, None, None)
 
         asleep = sleep_time >= TIME_TO_SLEEP
-        reward = shaping - state.prev_shaping - m_power * 0.30 - s_power * 0.03
+        reward = shaping - state.prev_shaping - m_power * MAIN_FUEL - s_power * SIDE_FUEL
         crashed = body_hit | (torch.abs(obs[:, 0]) >= 1.0)
         terminated = crashed | asleep
         reward = torch.where(crashed, -100.0, torch.where(asleep, 100.0, reward))
