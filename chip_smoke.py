@@ -5,7 +5,8 @@
 Drives ``gymrl_tpu_torch``'s main path, PPO on LunarLander, and every
 ported family (off-policy, DQN, recurrent, mHC, tabular, pixels) on the card,
 then the distributed layer, the profiling hooks and the hand-written lander
-kernels against their plain versions, and checks what comes out. Every phase raises on failure; the script exits 0
+and PPO-update kernels against their plain versions, and checks what comes
+out. Every phase raises on failure; the script exits 0
 only if all of them pass.
 
   0. Device: a CUDA device must be present; prints ``nvidia-smi``'s name
@@ -14,7 +15,7 @@ only if all of them pass.
      with random actions until about 40% of them touch the ground, are
      stepped once on the card (the ``lander_step`` kernel, which this first
      lander step on the card builds with nvcc; ``build_s`` is printed after
-     the phase) and once on the CPU (the plain path) with the same actions
+     phase 2, whose first grad step builds ``ppo.cu``) and once on the CPU (the plain path) with the same actions
      and dispersion draws. Kinematics and rewards must agree to 1e-4; at
      most 8 of the 8192 envs may differ more, or in their contact and
      termination flags (a contact test that ties within float32 rounding
@@ -228,15 +229,56 @@ only if all of them pass.
      stand-in script), a lander step on the card raises and launches
      nothing: no fallback to the plain path.
   Phases 2, 3, 11 and 13 run with the kernels' launch counts set to 0 just
-  before them, and fail unless both lander kernels launched in them.
-  ``phase_kernels_each_card`` (not in ``main``, which needs one card) runs
-  18 (a)-(b) on every other card of a machine with more, PyTorch's current
-  device left on the first.
+  before them, and fail unless both lander kernels launched in them; phases
+  2 and 3 (``PPOTrainer``) also unless each of PPO's four update kernels
+  launched once per grad step (128 per bench iteration, 320 per
+  ``ppo_lunarlander`` iteration). ``phase_kernels_each_card`` (not in
+  ``main``, which needs one card) runs 18 (a)-(b) and 19 (a)-(b) on every
+  other card of a machine with more, and fails unless PyTorch's current
+  device stays on the first.
+ 19. PPO's update kernels (``gymrl_tpu_torch/kernels/ppo.cu``) against
+     their plain versions on the card. (a) The loss head: ``PPOHeadLoss``
+     (``ppo_loss_fwd`` and ``ppo_loss_bwd``) against ``ppo_head_loss_plain``
+     and autograd on every minibatch of an epoch, at the bench config's
+     shape (16,384 rows, logits from ``forward_bf16``) and
+     ``ppo_lunarlander``'s (64 rows, f32); the rows are a real rollout's,
+     logp_old from the seed's params, and the params those of a later
+     iteration once the ratios lie on both sides of the clip band and under
+     the dual clip (``_covering_rows``; the bench config trains with its lr
+     anneal off, which would stop it at its second iteration). The loss and
+     the metrics within 1e-6 relative of their exact means (float64 means of
+     the plain path's own float32 row terms; the plain path's float32 mean of
+     the policy objective, whose terms cancel, is itself ~1e-5 off and is
+     printed), ``clip_frac`` equal to the plain one, dlogits and dvalues within
+     1e-6 of each tensor's largest entry; rows within 1e-6 of 1 ± clip_eps
+     or of ``min_surr == 3 * adv`` are counted and left out of dlogits.
+     (b) The squares: ``grad_sq_norms`` on a minibatch's real gradients, as
+     they come and with each tensor scaled by its own power of 2, and on a
+     40-tensor table (two launches), each square within 1e-6 of its float64
+     sum relative to itself, and within 1e-6 of the largest plain square
+     (``torch._foreach_norm``, squared) against the plain one, at both
+     shapes. The clip with Adam: ``clip_adam_`` against ``clip_adam_plain_`` for
+     10 steps from copies of the trained net and Adam (the bench's with
+     ``foreach``, the CLI's without), fed the same real gradients scaled to a
+     global norm of 5 (the clip at 0.5 acts) and 0.05 (it does not): params
+     within 1e-6, ``exp_avg`` and ``exp_avg_sq`` within 1e-6 of each tensor's
+     largest entry, the norm within 1e-6 relative; whether equal to the bit
+     is printed. (c) One bench-config and one ``ppo_lunarlander`` iteration
+     on the kernels against one with the plain versions patched into
+     ``algos.ppo``, from the same init and noise, under phase 16's rules
+     (``_dist_check``). (d) ms per call of each kernel, its plain version
+     and, for ``grad_sq_norms`` and ``clip_adam``, the library call
+     (``torch._foreach_norm``; the clip and ``torch.optim.Adam(fused=True)``)
+     at both shapes, the device times from traces, and the bound. (e) The
+     CUDA launches of one grad step (``PPOTrainer._minibatch_step``) on the
+     kernels and on the plain versions, at both shapes, and the host time of
+     its parts (forward, head, backward, clip with Adam) by the host clock,
+     from timing shims patched around the step's head and update.
 
 The line before the last is the kernel list: each kernel's launches in
 phase 2 (the bench config), its largest error against the plain path in
-phase 18, and its times and bound at 8192 envs. The last line of output is
-one JSON object naming the device.
+phases 18 and 19, and its times and bound at the bench config's shapes. The
+last line of output is one JSON object naming the device.
 """
 
 from __future__ import annotations
@@ -2838,10 +2880,11 @@ def _no_fallback(device: torch.device) -> dict:
 
 
 def phase_kernels_each_card(steps: int = KERNEL_STEPS) -> list[dict]:
-    """Phase 18 (a)-(b) on every card but the first, at the main path's
-    smallest batch, with PyTorch's current device left on the first: each
-    launch must reach the card that holds its tensors. For a machine with
-    more than one card; ``main`` needs one."""
+    """Phase 18 (a)-(b) and phase 19 (a)-(b) on every card but the first,
+    at the main path's smallest batch for the lander kernels and at both of
+    phase 19's shapes for the update kernels, with PyTorch's current device
+    left on the first: each launch must reach the card that holds its
+    tensors. For a machine with more than one card; ``main`` needs one."""
     from gymrl_tpu_torch import kernels
 
     results = []
@@ -2849,11 +2892,14 @@ def phase_kernels_each_card(steps: int = KERNEL_STEPS) -> list[dict]:
         device = torch.device("cuda", index)
         kernels.reset_launches()
         r = _check_kernels(device, kernel_envs()[:1], steps)
+        r["update"] = _update_checks(device)
         r.update(device=str(device), current_device=torch.cuda.current_device(),
                  launches=dict(kernels.LAUNCHES))
         if not all(r["launches"].values()):
-            raise AssertionError(f"{device}: a lander kernel did not launch: {r['launches']}")
-        log("phase 18 on another card: " + json.dumps(
+            raise AssertionError(f"{device}: a kernel did not launch: {r['launches']}")
+        if r["current_device"] != 0:
+            raise AssertionError(f"{device}: the current device moved to {r['current_device']}")
+        log("phases 18-19 on another card: " + json.dumps(
             {k: r[k] for k in ("device", "current_device", "launches")}))
         results.append(r)
     if not results:
@@ -2861,39 +2907,583 @@ def phase_kernels_each_card(steps: int = KERNEL_STEPS) -> list[dict]:
     return results
 
 
-def _on_kernels(label: str, fn, *args, **kw):
+LANDER_KERNELS = ("lunarlander_step", "lunarlander_reset")
+UPDATE_KERNELS = ("ppo_loss_fwd", "ppo_loss_bwd", "grad_sq_norms", "clip_adam")
+
+
+def _on_kernels(label: str, fn, *args, names=LANDER_KERNELS, **kw):
     """Runs a phase that drives lander workloads, the launch counts set to 0
-    just before it; fails unless both lander kernels ran in it."""
+    just before it; fails unless each kernel of ``names`` ran in it."""
     from gymrl_tpu_torch import kernels
 
     kernels.reset_launches()
     result = fn(*args, **kw)
     counts = dict(kernels.LAUNCHES)
     log(f"{label} kernel launches: " + json.dumps(counts))
-    if not all(counts.values()):
-        raise AssertionError(f"{label} did not go through every lander kernel: {counts}")
+    if not all(counts[name] for name in names):
+        raise AssertionError(f"{label} did not go through every kernel of {names}: {counts}")
     return result, counts
 
 
-def kernel_line(counts: dict, phase18: dict) -> dict:
+def _check_update_launches(label: str, counts: dict, grad_steps: int) -> None:
+    """Each update kernel launched once per grad step of ``PPOTrainer``."""
+    wrong = {n: counts[n] for n in UPDATE_KERNELS if counts[n] != grad_steps}
+    if wrong:
+        raise AssertionError(f"{label}: {grad_steps} grad steps, but update launches {wrong}")
+
+
+# -- phase 19: PPO's update kernels against their plain versions on the card ---------
+HEAD_RTOL = 1e-6  # the loss and its metrics, relative
+HEAD_GRAD_TOL = 1e-6  # dlogits and dvalues, of each tensor's largest entry
+HEAD_TIE = 1e-6  # a ratio this close to 1 ± clip_eps, or min_surr this close to 3·adv
+HEAD_MAX_ITERS = 16  # iterations after which the first one's rows must cover band and dual clip
+ADAM_STEPS = 10
+ADAM_TOL = 1e-6  # params absolute; moments of each tensor's largest entry; the norm relative
+ADAM_NORMS = {"active": 5.0, "inactive": 0.05}  # the gradients' global norm; the clip is 0.5
+# each tensor's square against its float64 sum, relative to itself (the kernel sums in
+# float64 and rounds once), and against the plain square, of the table's largest
+SQ_NORMS_TOL = 1e-6
+# a table past one launch's MAX_TENSORS: sizes around the kernel's CHUNK of 2048, and one
+SQ_NORMS_TABLE = (1, 3, 2047, 2048, 2049, 4096, 6000, 65536, 17, 256) * 4
+# Float32 operations counted in ppo.cu for a row of A = 4 logits (each add, multiply,
+# compare, select, exp and log as one), and per parameter for the multi-tensor kernels.
+LOSS_FWD_OPS_PER_ROW = 64
+LOSS_BWD_OPS_PER_ROW = 112
+SQ_NORMS_OPS_PER_PARAM = 2
+CLIP_ADAM_OPS_PER_PARAM = 14
+
+
+def _rows_of(trainer):
+    """``trainer``'s state after one iteration from seed 0, and the packed
+    rows and epoch permutations that iteration trained on."""
+    from unittest import mock
+
+    seen, sgd = [], trainer._sgd
+    with mock.patch.object(trainer, "_sgd", lambda t, packed, perms: seen.append(
+            (packed, perms)) or sgd(t, packed, perms)):
+        ts, _ = trainer.train_iter(trainer.init(0))
+    packed, perms = seen[0]
+    return ts, packed, perms
+
+
+def _minibatches(trainer, packed, perms, count: int) -> list[torch.Tensor]:
+    cfg = trainer.cfg
+    mbs = packed[perms[0]].reshape(cfg.num_minibatches, cfg.minibatch_size, packed.shape[1])
+    return list(mbs[:count])
+
+
+def _columns(trainer, mb):
+    d = trainer.obs_dim
+    return mb[:, d], mb[:, d + 1], mb[:, d + 2], mb[:, d + 3]  # views at stride d + 4
+
+
+def _net_outputs(trainer, net, mb):
+    from gymrl_tpu_torch.algos.ppo import forward_bf16
+
+    obs = mb[:, :trainer.obs_dim]
+    with torch.no_grad():
+        return forward_bf16(net, obs) if trainer.cfg.sgd_bf16 else net(obs)
+
+
+def _plain_rows(cfg, logits, values, action, logp_old, adv, returns) -> dict:
+    """Each row's terms of the plain head's means (float32, the plain path's
+    ops and so its bits), its ratio and min_surr."""
+    import numpy as np
+
+    lo, hi = float(np.float32(1.0 - cfg.clip_eps)), float(np.float32(1.0 + cfg.clip_eps))
+    with torch.no_grad():
+        logp_all = torch.log_softmax(logits, -1)
+        logp = logp_all.gather(-1, action.long()[:, None]).squeeze(-1)
+        ratio = torch.exp(logp - logp_old)
+        min_surr = torch.minimum(ratio * adv, torch.clamp(ratio, lo, hi) * adv)
+        dual = cfg.dual_clip * adv
+        return {
+            "obj": torch.where(adv < 0.0, torch.maximum(min_surr, dual), min_surr),
+            "sq": torch.square(values - returns),
+            "entropy": -(torch.exp(logp_all) * logp_all).sum(-1),
+            "clipped": ((ratio < lo) | (ratio > hi)).float(),
+            "kl": logp_old - logp,
+            "ratio": ratio, "min_surr": min_surr, "dual": dual, "lo": lo, "hi": hi,
+        }
+
+
+def _bands(rows: dict, adv: torch.Tensor) -> dict:
+    """Each row's place against the clip band and the dual clip, and the tie
+    rows whose side float32 rounding may decide."""
+    ratio, lo, hi = rows["ratio"], rows["lo"], rows["hi"]
+    tie = (((ratio - lo).abs() <= HEAD_TIE) | ((ratio - hi).abs() <= HEAD_TIE)
+           | ((adv < 0) & ((rows["min_surr"] - rows["dual"]).abs() <= HEAD_TIE)))
+    return {"below": int((ratio < lo).sum()), "inside": int(((ratio >= lo) & (ratio <= hi)).sum()),
+            "above": int((ratio > hi).sum()),
+            "dual_clipped": int(((adv < 0) & (rows["min_surr"] < rows["dual"])).sum()),
+            "ties": tie}
+
+
+def _exact_head(cfg, rows: dict) -> list[float]:
+    """The loss and ``METRICS`` as float64 means of the plain path's own
+    float32 row terms: what a mean would give without rounding."""
+    m = {k: float(rows[k].double().mean()) for k in ("obj", "sq", "entropy", "clipped", "kl")}
+    policy_loss, value_loss = -m["obj"], cfg.value_coef * m["sq"]
+    return [policy_loss + value_loss - cfg.entropy_coef * m["entropy"], policy_loss, value_loss,
+            m["entropy"], m["clipped"], m["kl"]]
+
+
+def _head_case(trainer, net, mb) -> dict:
+    """Phase 19 (a) on one minibatch: ``PPOHeadLoss`` (both kernels) against
+    ``ppo_head_loss_plain`` and autograd, from the same logits and values;
+    the loss and metrics also against their exact means."""
+    from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
+    from gymrl_tpu_torch.kernels.ppo import METRICS, PPOHeadLoss
+
+    cfg = trainer.cfg
+    cols = _columns(trainer, mb)
+    logits, values = _net_outputs(trainer, net, mb)
+    out = {}
+    for route, head in (("kernel", PPOHeadLoss.apply), ("plain", ppo_head_loss_plain)):
+        lg, v = logits.clone().requires_grad_(True), values.clone().requires_grad_(True)
+        loss, metrics = head(lg, v, *cols, cfg)
+        loss.backward()
+        out[route] = ([float(loss.detach())] + metrics.tolist(), lg.grad, v.grad)
+    (vk, dlk, dvk), (vp, dlp, dvp) = out["kernel"], out["plain"]
+    rows = _plain_rows(cfg, logits, values, *cols)
+    bands = _bands(rows, cols[2])
+    ties = bands.pop("ties")
+    exact = _exact_head(cfg, rows)
+    names = ("loss",) + METRICS
+    rel = {route: {k: abs(x - e) / abs(e) for k, x, e in zip(names, vals, exact)
+                   if k != "clip_frac"} for route, vals in (("kernel", vk), ("plain", vp))}
+    keep = ~ties
+    dl_err = float((dlk - dlp)[keep].abs().max()) if keep.any() else 0.0
+    dv_err = float((dvk - dvp).abs().max())
+    return {
+        "rows": mb.shape[0], **bands, "tie_rows": int(ties.sum()),
+        "rel_err": rel["kernel"], "plain_rel_err": rel["plain"],
+        "kernel_vs_plain_rel": {k: abs(a - b) / abs(b) for k, a, b in zip(names, vk, vp)
+                                if k != "clip_frac"},
+        "clip_frac_rows_apart": abs(vk[4] - vp[4]) * mb.shape[0],
+        "dlogits_err": dl_err, "dlogits_scale": float(dlp.abs().max()),
+        "dvalues_err": dv_err, "dvalues_scale": float(dvp.abs().max()),
+        "max_abs_err": {"forward": max(abs(a - b) for a, b in zip(vk, vp)),
+                        "backward": max(dl_err, dv_err)},
+    }
+
+
+def _merge_head(cases: list[dict]) -> dict:
+    out = {"rows": sum(c["rows"] for c in cases), "minibatches": len(cases)}
+    for k in ("below", "inside", "above", "dual_clipped", "tie_rows"):
+        out[k] = sum(c[k] for c in cases)
+    for key in ("rel_err", "plain_rel_err", "kernel_vs_plain_rel"):
+        out[key] = {k: max(c[key][k] for c in cases) for k in cases[0][key]}
+    for k in ("dlogits", "dvalues"):
+        out[f"{k}_of_scale"] = max(c[f"{k}_err"] / c[f"{k}_scale"] for c in cases)
+    out["clip_frac_rows_apart"] = max(c["clip_frac_rows_apart"] for c in cases)
+    out["max_abs_err"] = {k: max(c["max_abs_err"][k] for c in cases)
+                          for k in ("forward", "backward")}
+    return out
+
+
+def _covered(r: dict) -> bool:
+    """Whether the rows lie inside the band, beyond both its bounds, and
+    under the dual clip."""
+    return all(r[k] for k in ("below", "inside", "above", "dual_clipped"))
+
+
+def _check_head(label: str, r: dict, tie_rows_per_case: list[int]) -> None:
+    breaks = [f"{k} {v} > {HEAD_RTOL}" for k, v in r["rel_err"].items() if not v <= HEAD_RTOL]
+    breaks += [f"{k} {r[f'{k}_of_scale']} > {HEAD_GRAD_TOL}" for k in ("dlogits", "dvalues")
+               if not r[f"{k}_of_scale"] <= HEAD_GRAD_TOL]
+    # clip_frac exact, but for the rows that tie at the band's edges
+    if r["clip_frac_rows_apart"] > max(tie_rows_per_case):
+        breaks.append(f"clip_frac {r['clip_frac_rows_apart']} rows apart")
+    if not _covered(r):
+        breaks.append(f"the rows do not cover the band and the dual clip: {r}")
+    if breaks:
+        raise AssertionError(f"{label}: " + "; ".join(breaks))
+
+
+def _covering_rows(name: str, device: torch.device):
+    """A trainer of phase 16's case ``name`` from seed 0, trained on until
+    the packed rows of its first iteration (logp_old from the seed's params)
+    lie, under its params, on both sides of the clip band and under the dual
+    clip; and those rows and how many iterations old they are. The bench
+    config's lr anneals to 0 at 1M env steps (its second iteration), so here
+    it trains with ``anneal_lr`` off; its shapes are unchanged."""
+    import dataclasses
+
+    trainer = _dist_trainer(name, device)
+    if name == "bench":
+        trainer = type(trainer)(dataclasses.replace(trainer.cfg, anneal_lr=False), device=device)
+    ts, packed, perms = _rows_of(trainer)
+    mb = packed[perms[0]]
+    cols = _columns(trainer, mb)
+    for older in range(1, HEAD_MAX_ITERS + 1):
+        if older >= 2:
+            logits, values = _net_outputs(trainer, ts.params, mb)
+            if _covered(_bands(_plain_rows(trainer.cfg, logits, values, *cols), cols[2])):
+                return trainer, ts, packed, perms, older
+        ts, _ = trainer.train_iter(ts)
+    raise AssertionError(f"{name}: the first iteration's rows do not cover the clip band and "
+                         f"the dual clip after {HEAD_MAX_ITERS} iterations")
+
+
+def _head_phase(device: torch.device) -> dict:
+    """Phase 19 (a): every minibatch of the first epoch of an iteration, of
+    the bench config (32 of 16,384 rows, logits from ``forward_bf16``) and of
+    ``ppo_lunarlander`` (32 of 64 rows, f32), logp_old from that iteration's
+    rollout and the params some iterations later (``_covering_rows``)."""
+    results = {}
+    for name in ("bench", "ppo_lunarlander"):
+        trainer, ts, packed, perms, older = _covering_rows(name, device)
+        cases = [_head_case(trainer, ts.params, mb)
+                 for mb in _minibatches(trainer, packed, perms, trainer.cfg.num_minibatches)]
+        r = _merge_head(cases)
+        r.update(case=name, iterations_older=older)
+        log("phase 19a loss: " + json.dumps(r))
+        _check_head(f"phase 19a {name}", r, [c["tie_rows"] for c in cases])
+        results[name] = r
+        del trainer, ts, packed
+    return results
+
+
+def _real_grads(trainer, net, packed, perms, steps: int, norm: float) -> list[list[torch.Tensor]]:
+    """The plain loss's gradients of ``steps`` minibatches at ``net``, each
+    scaled to the global norm ``norm``."""
+    from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
+
+    out = []
+    for mb in _minibatches(trainer, packed, perms, steps):
+        net.zero_grad(set_to_none=True)
+        obs = mb[:, :trainer.obs_dim]
+        logits, values = net(obs)
+        loss, _ = ppo_head_loss_plain(logits, values, *_columns(trainer, mb), trainer.cfg)
+        loss.backward()
+        g = [p.grad.detach().clone() for p in net.parameters()]
+        total = torch.linalg.vector_norm(torch.stack([x.double().norm() for x in g]))
+        out.append([(x.double() * (norm / total)).float() for x in g])
+    net.zero_grad(set_to_none=True)
+    return out
+
+
+def _adam_case(trainer, ts, packed, perms, norm: float) -> dict:
+    """Phase 19 (b), one case: ``clip_adam_`` and ``clip_adam_plain_`` each
+    take ``ADAM_STEPS`` steps from copies of the trainer's net and Adam (its
+    moments, step count and ``foreach`` setting), fed the same gradients."""
+    from gymrl_tpu_torch.algos.base import adam, clip_adam_, clip_adam_plain_
+    from gymrl_tpu_torch.kernels.ppo import grad_sq_norms
+
+    cfg = trainer.cfg
+    grads = _real_grads(trainer, ts.params, packed, perms, ADAM_STEPS, norm)
+    runs, norms = {}, {"kernel": [], "plain": []}
+    for route, step in (("kernel", clip_adam_), ("plain", clip_adam_plain_)):
+        net = copy.deepcopy(ts.params)
+        opt = adam(list(net.parameters()), cfg.lr, cfg.adam_eps, foreach=cfg.flat_optimizer)
+        opt.load_state_dict(copy.deepcopy(ts.opt_state.state_dict()))
+        for g in grads:
+            for p, x in zip(net.parameters(), g):
+                p.grad = x.clone()
+            gs = [p.grad for p in net.parameters()]
+            if route == "kernel":
+                norms[route].append(float(grad_sq_norms(gs).double().sum().sqrt()))
+            else:
+                norms[route].append(float(torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(gs)))))
+            step(opt, gs, cfg.max_grad_norm)
+        runs[route] = (net, opt)
+    (nk, ok), (np_, op) = runs["kernel"], runs["plain"]
+    err = {"params": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    equal = True
+    for pk, pp in zip(nk.parameters(), np_.parameters()):
+        err["params"] = max(err["params"], float((pk - pp).detach().abs().max()))
+        equal &= torch.equal(pk, pp)
+        sk, sp = ok.state[pk], op.state[pp]
+        for k in ("exp_avg", "exp_avg_sq"):
+            scale = float(sp[k].abs().max()) or 1.0
+            err[k] = max(err[k], float((sk[k] - sp[k]).abs().max()) / scale)
+            equal &= torch.equal(sk[k], sp[k])
+        if float(sk["step"]) != float(sp["step"]):
+            raise AssertionError(f"Adam's step {float(sk['step'])} vs {float(sp['step'])}")
+    norm_rel = max(abs(a - b) / b for a, b in zip(norms["kernel"], norms["plain"]))
+    return {"foreach": bool(cfg.flat_optimizer), "grad_norm": norm, "steps": ADAM_STEPS,
+            "adam_step": float(ok.state[next(iter(nk.parameters()))]["step"]),
+            "params_abs_err": err["params"], "exp_avg_of_scale": err["exp_avg"],
+            "exp_avg_sq_of_scale": err["exp_avg_sq"], "norm_rel_err": norm_rel,
+            "equal_to_the_bit": bool(equal)}
+
+
+def _sq_rel_errs(got: torch.Tensor, grads: list[torch.Tensor]) -> dict:
+    """Each tensor's square from ``grad_sq_norms`` (``got``) against its
+    float64 sum, relative to itself, and against the plain square of
+    ``torch._foreach_norm``, absolute and of the largest plain square (the
+    plain float32 sums are themselves up to ~1e-6 off their exact values);
+    and the plain squares' own error."""
+    plain = torch.square(torch.stack(torch._foreach_norm(grads))).double()
+    exact = torch.stack([g.double().square().sum() for g in grads])
+    got = got.double()
+    return {"tensors": len(grads),
+            "rel_err_exact": float(((got - exact).abs() / exact).max()),
+            "plain_rel_err_exact": float(((plain - exact).abs() / exact).max()),
+            "max_abs_err": float((got - plain).abs().max()),
+            "err_of_largest": float((got - plain).abs().max() / plain.max())}
+
+
+def _sq_norms_case(trainer, ts, packed, perms, name: str) -> dict:
+    """Phase 19 (b), the squares: ``grad_sq_norms`` on a minibatch's real
+    gradients, as they come and with tensor ``i`` scaled by
+    ``2^(3·(i mod 7) − 9)`` (exact), so that tensors' squares lie 2^-18 to
+    2^18 apart and a partial given to the wrong tensor shows; then on a
+    table of ``len(SQ_NORMS_TABLE)`` tensors, more than one launch holds.
+    Each square is held to ``SQ_NORMS_TOL`` of its own exact size, and to
+    ``SQ_NORMS_TOL`` of the largest plain square against the plain one."""
+    from gymrl_tpu_torch.kernels.ppo import grad_sq_norms
+
+    device = trainer.device
+    real = _real_grads(trainer, ts.params, packed, perms, 1, 1.0)[0]
+    scaled = [g * 2.0 ** (3 * (i % 7) - 9) for i, g in enumerate(real)]
+    gen = torch.Generator(device=device).manual_seed(19)
+    table = [torch.randn(n, generator=gen, device=device) * 2.0 ** (3 * (i % 7) - 9)
+             for i, n in enumerate(SQ_NORMS_TABLE)]
+    r = {"case": name}
+    for label, grads in (("real", real), ("scaled", scaled), ("table", table)):
+        r[label] = _sq_rel_errs(grad_sq_norms(grads), grads)
+    log("phase 19b squares: " + json.dumps(r))
+    bad = {f"{label} {k}": r[label][k] for label in ("real", "scaled", "table")
+           for k in ("rel_err_exact", "err_of_largest") if not r[label][k] <= SQ_NORMS_TOL}
+    if bad:
+        raise AssertionError(f"phase 19b {name} squares: {bad} > {SQ_NORMS_TOL}")
+    return r
+
+
+def _whole_iterations(device: torch.device) -> dict:
+    """Phase 19 (c): one iteration of the bench config and of ppo_lunarlander
+    on the kernels, and one with the plain versions patched into
+    ``algos.ppo``, from the same init and noise, under phase 16's rules."""
+    from unittest import mock
+
+    from gymrl_tpu_torch import kernels
+    from gymrl_tpu_torch.algos import ppo as ppo_mod
+    from gymrl_tpu_torch.algos.base import clip_adam_plain_
+
+    out = {}
+    for name in ("bench", "ppo_lunarlander"):
+        trainer = _dist_trainer(name, device)
+        ts, o, wall = _timed_iter(trainer, trainer.init(0))
+        plain = _dist_trainer(name, device)
+        before = dict(kernels.LAUNCHES)
+        with mock.patch.object(ppo_mod, "ppo_head_loss", ppo_mod.ppo_head_loss_plain), \
+                mock.patch.object(ppo_mod, "clip_adam_", clip_adam_plain_):
+            ts_p, o_p, wall_p = _timed_iter(plain, plain.init(0))
+        if any(kernels.LAUNCHES[k] != before[k] for k in UPDATE_KERNELS):
+            raise AssertionError(f"{name}: the plain iteration launched an update kernel")
+        ref = _reference(plain, ts_p, o_p, wall_p)
+        report = _dist_check(name, _cpu_flat(ts), {k: float(v) for k, v in o.metrics.items()},
+                             ref)
+        out[name] = {"adam_steps": ref["adam_steps"], "bf16": ref["bf16"],
+                     "wall_s": {"kernels": wall, "plain": wall_p}, "state": report}
+        log("phase 19c iteration: " + json.dumps({"case": name, **out[name]}))
+        del trainer, ts, plain, ts_p
+    return out
+
+
+def _update_times(device: torch.device, name: str, calls: int) -> list[dict]:
+    """Phase 19 (d) at one case's shape: ms per call and device time of each
+    update kernel, its plain version and the library call, and the bound."""
+    from gymrl_tpu_torch.algos.base import clip_adam_plain_, clip_grads_by_global_norm_
+    from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
+    from gymrl_tpu_torch.kernels import ppo as kp
+
+    trainer = _dist_trainer(name, device)
+    ts, packed, perms = _rows_of(trainer)
+    cfg = trainer.cfg
+    mb = _minibatches(trainer, packed, perms, 1)[0]
+    cols = _columns(trainer, mb)
+    logits, values = _net_outputs(trainer, ts.params, mb)
+    lg, v = logits.clone().requires_grad_(True), values.clone().requires_grad_(True)
+    plain_loss, _ = ppo_head_loss_plain(lg, v, *cols, cfg)
+    grad_out = torch.ones((), device=device)
+    net = ts.params
+    grads = _real_grads(trainer, net, packed, perms, 1, 5.0)[0]
+    for p, g in zip(net.parameters(), grads):
+        p.grad = g
+    params = list(net.parameters())
+    opt = ts.opt_state
+    sq = kp.grad_sq_norms(grads)
+    fused = torch.optim.Adam(params, lr=cfg.lr, eps=cfg.adam_eps, fused=True)
+    n, n_params = mb.shape[0], sum(p.numel() for p in params)
+    col_bytes = 4 * n * 4
+    loss_bytes = _nbytes(logits, values) + col_bytes
+    cases = (
+        ("ppo_loss_fwd", lambda: kp.ppo_loss_fwd(logits, values, *cols, cfg),
+         lambda: ppo_head_loss_plain(logits, values, *cols, cfg), None,
+         loss_bytes + 4 * (1 + len(kp.METRICS)), LOSS_FWD_OPS_PER_ROW * n),
+        ("ppo_loss_bwd", lambda: kp.ppo_loss_bwd(logits, values, *cols, grad_out, cfg),
+         lambda: torch.autograd.grad(plain_loss, (lg, v), retain_graph=True), None,
+         2 * loss_bytes - col_bytes + 4, LOSS_BWD_OPS_PER_ROW * n),
+        ("grad_sq_norms", lambda: kp.grad_sq_norms(grads),
+         lambda: torch.square(torch.stack(torch._foreach_norm(grads))),
+         lambda: torch._foreach_norm(grads), 4 * n_params + 4 * len(grads),
+         SQ_NORMS_OPS_PER_PARAM * n_params),
+        ("clip_adam", lambda: kp.clip_adam(opt, grads, sq, cfg.max_grad_norm),
+         lambda: clip_adam_plain_(opt, grads, cfg.max_grad_norm),
+         lambda: (clip_grads_by_global_norm_(grads, cfg.max_grad_norm), fused.step()),
+         28 * n_params + 4 * len(grads), CLIP_ADAM_OPS_PER_PARAM * n_params),
+    )
+    out = []
+    for kernel, fn, plain, library, nbytes, ops in cases:
+        bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
+        launches, per_kernel = _traced_kernels(device, fn, calls)
+        plain_launches, plain_per_kernel = _traced_kernels(device, plain, 5)
+        r = {"kernel": kernel, "case": name, "rows": n, "params": n_params,
+             "ms": _per_call_ms(device, fn, calls), "plain_ms": _per_call_ms(device, plain, calls),
+             "device_ms": per_kernel, "traced_launches_per_call": launches,
+             "plain_device_ms": plain_per_kernel * plain_launches,
+             "plain_launches_per_call": plain_launches, "library_ms": None,
+             "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
+             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        if library is not None:
+            lib_launches, lib_per_kernel = _traced_kernels(device, library, 5)
+            r.update(library_ms=_per_call_ms(device, library, calls),
+                     library_device_ms=lib_per_kernel * lib_launches,
+                     library_launches_per_call=lib_launches)
+        log("phase 19d time: " + json.dumps(r))
+        out.append(r)
+    return out
+
+
+def _step_host_ms(trainer, ts, mb, head, update, steps: int) -> dict:
+    """Host milliseconds of each part of ``trainer._minibatch_step``,
+    averaged over ``steps`` steps, with ``head`` and ``update`` as its loss
+    head and its clip + Adam: timing shims around those two mark where the
+    forward, the head, the backward (with ``zero_grad``) and the update end
+    on the host clock, the card left to run behind; the whole step ends in a
+    synchronize, which ``step`` includes."""
+    from unittest import mock
+
+    from gymrl_tpu_torch.algos import ppo as ppo_mod
+
+    marks = {}
+
+    def shim(fn, start, end):
+        def timed(*args, **kw):
+            marks[start] = time.perf_counter()
+            out = fn(*args, **kw)
+            marks[end] = time.perf_counter()
+            return out
+        return timed
+
+    parts = dict.fromkeys(("forward", "head", "backward", "clip_adam", "step"), 0.0)
+    with mock.patch.object(ppo_mod, "ppo_head_loss", shim(head, "head", "backward")), \
+            mock.patch.object(ppo_mod, "clip_adam_", shim(update, "clip_adam", "sync")):
+        for _ in range(steps):
+            _sync(trainer.device)
+            t0 = time.perf_counter()
+            trainer._minibatch_step(ts, mb)
+            _sync(trainer.device)
+            t = {"forward": t0, **marks, "end": time.perf_counter()}
+            for k, a, b in (("forward", "forward", "head"), ("head", "head", "backward"),
+                            ("backward", "backward", "clip_adam"),
+                            ("clip_adam", "clip_adam", "sync"), ("step", "forward", "end")):
+                parts[k] += (t[b] - t[a]) * 1e3 / steps
+    return parts
+
+
+def _step_launches(device: torch.device, name: str, steps: int = 20) -> dict:
+    """Phase 19 (e): CUDA kernels one grad step launches (``_minibatch_step``
+    under ``utils.profiling.trace``) and the host time of its parts, on the
+    kernels and with the plain versions patched in."""
+    from unittest import mock
+
+    from gymrl_tpu_torch.algos import base
+    from gymrl_tpu_torch.algos import ppo as ppo_mod
+    from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
+
+    trainer = _dist_trainer(name, device)
+    ts, packed, perms = _rows_of(trainer)
+    mb = _minibatches(trainer, packed, perms, 1)[0]
+    out = {"case": name, "rows": mb.shape[0]}
+    routes = {"kernels": (ppo_mod.ppo_head_loss, base.clip_adam_),
+              "plain": (ppo_mod.ppo_head_loss_plain, base.clip_adam_plain_)}
+    for route, (head, update) in routes.items():
+        with mock.patch.object(ppo_mod, "ppo_head_loss", head), \
+                mock.patch.object(ppo_mod, "clip_adam_", update):
+            trainer._minibatch_step(ts, mb)  # warm-up
+            with tempfile.TemporaryDirectory() as tmp:
+                with trace(tmp, device) as prof:
+                    trainer._minibatch_step(ts, mb)
+        host = _step_host_ms(trainer, ts, mb, head, update, steps)
+        stats = kernel_stats(prof)
+        out[route] = {"launches": stats["kernels"], "kernel_ms": stats["kernel_ms"],
+                      "host_ms": host}
+    log("phase 19e grad step: " + json.dumps(out))
+    return out
+
+
+def _update_checks(device: torch.device) -> dict:
+    """Phase 19 (a)-(b) on ``device``: the loss head; the squares and clip +
+    Adam, at the bench config's shape (foreach) and ``ppo_lunarlander``'s
+    (per tensor)."""
+    out = {"head": _head_phase(device), "adam": [], "sq_norms": []}
+    for name in ("bench", "ppo_lunarlander"):
+        trainer = _dist_trainer(name, device)
+        ts, packed, perms = _rows_of(trainer)
+        out["sq_norms"].append(_sq_norms_case(trainer, ts, packed, perms, name))
+        for label, norm in ADAM_NORMS.items():
+            r = _adam_case(trainer, ts, packed, perms, norm)
+            r.update(case=name, clip=label)
+            log("phase 19b clip + Adam: " + json.dumps(r))
+            out["adam"].append(r)
+            bad = {k: r[k] for k in ("params_abs_err", "exp_avg_of_scale", "exp_avg_sq_of_scale",
+                                     "norm_rel_err") if not r[k] <= ADAM_TOL}
+            if bad:
+                raise AssertionError(f"phase 19b {name} {label}: {bad} > {ADAM_TOL}")
+        del trainer, ts
+    return out
+
+
+def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) -> dict:
+    """Phase 19: PPO's update kernels against their plain versions on the
+    card: (a) the loss head, (b) the squares and the clip with Adam, (c)
+    whole iterations, (d) times, (e) launches of one grad step."""
+    out = _update_checks(device)
+    out["iterations"] = _whole_iterations(device)
+    out["time"] = [r for name in ("bench", "ppo_lunarlander")
+                   for r in _update_times(device, name, calls)]
+    if device.type == "cuda":
+        out["grad_step"] = [_step_launches(device, name) for name in ("bench", "ppo_lunarlander")]
+    return out
+
+
+def kernel_line(counts: dict, phase18: dict, phase19: dict) -> dict:
     """The kernels line: each kernel's launches on the main path (the bench
     config), its largest error against the plain path, and its times and
-    bound at the bench config's batch."""
+    bound at the bench config's shapes."""
     widest = max(r["envs"] for r in phase18["time"])
     times = {r["kernel"]: r for r in phase18["time"] if r["envs"] == widest}
+    times.update({r["kernel"]: r for r in phase19["time"] if r["case"] == "bench"})
+    head = phase19["head"].values()
     errs = {
         "lunarlander_step": max(max(r["max_abs_err"].values()) for r in phase18["step"]),
         "lunarlander_reset": max(max(r["max_abs_err"].values()) for r in phase18["reset"]),
+        "ppo_loss_fwd": max(r["max_abs_err"]["forward"] for r in head),
+        "ppo_loss_bwd": max(r["max_abs_err"]["backward"] for r in head),
+        "grad_sq_norms": next(r["real"]["max_abs_err"] for r in phase19["sq_norms"]
+                              if r["case"] == "bench"),
+        "clip_adam": max(r["params_abs_err"] for r in phase19["adam"]),
     }
+    sources = dict.fromkeys(LANDER_KERNELS, "gymrl_tpu_torch/kernels/lunarlander.cu")
+    sources.update(dict.fromkeys(UPDATE_KERNELS, "gymrl_tpu_torch/kernels/ppo.cu"))
     replaces = {"lunarlander_step": "gymrl_tpu/envs/lunarlander.py:308",
-                "lunarlander_reset": "gymrl_tpu/envs/lunarlander.py:263"}
+                "lunarlander_reset": "gymrl_tpu/envs/lunarlander.py:263",
+                "ppo_loss_fwd": "gymrl_tpu/algos/ppo.py:335",
+                "ppo_loss_bwd": "gymrl_tpu/algos/ppo.py:449",
+                "grad_sq_norms": "gymrl_tpu/algos/ppo.py:206",
+                "clip_adam": "gymrl_tpu/algos/ppo.py:205"}
     return {"kernels": [
-        {"name": name, "route": "cuda", "source": "gymrl_tpu_torch/kernels/lunarlander.cu",
+        {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": counts[name], "max_abs_err": errs[name],
          "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
          "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-         "library_ms": None}
-        for name in ("lunarlander_step", "lunarlander_reset")]}
+         "library_ms": times[name].get("library_ms")}
+        for name in LANDER_KERNELS + UPDATE_KERNELS]}
 
 
 def main() -> int:
@@ -2919,10 +3509,20 @@ def main() -> int:
 
     from gymrl_tpu_torch.kernels import build
 
+    from gymrl_tpu_torch.bench import BENCH_CONFIG
+    from gymrl_tpu_torch.run import cli
+
     timed(1, phase_physics, device)  # the first lander step on the card builds the kernels
+    _, main_path = timed(2, _on_kernels, "phase 2", phase_bench, device,
+                         names=LANDER_KERNELS + UPDATE_KERNELS)  # its first grad step builds ppo.cu
     log("build_s: " + json.dumps(build.BUILD_SECONDS))
-    _, main_path = timed(2, _on_kernels, "phase 2", phase_bench, device)
-    timed(3, _on_kernels, "phase 3", phase_entry, device)
+    bench_steps = BENCH_CONFIG.num_epochs * BENCH_CONFIG.num_minibatches
+    _check_update_launches("phase 2", main_path, (BENCH_TIMED_ITERS + 1) * bench_steps)
+    _, entry = timed(3, _on_kernels, "phase 3", phase_entry, device,
+                     names=LANDER_KERNELS + UPDATE_KERNELS)
+    cli_cfg = cli.WORKLOADS["ppo_lunarlander"]("cpu")[0].cfg
+    _check_update_launches("phase 3", entry, ENTRY_ITERS * cli_cfg.num_epochs
+                           * cli_cfg.num_minibatches)
     timed(4, phase_classic, device)
     timed(5, phase_updates, device)
     timed(6, phase_workloads, device)
@@ -2951,9 +3551,10 @@ def main() -> int:
     timed(16, phase_distributed, device)
     timed(17, phase_profile, device)
     phase18 = timed(18, phase_kernels, device)
+    phase19 = timed(19, phase_update_kernels, device)
     log("phase_s: " + json.dumps(phase_s))
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
-    log(json.dumps(kernel_line(main_path, phase18)))
+    log(json.dumps(kernel_line(main_path, phase18, phase19)))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

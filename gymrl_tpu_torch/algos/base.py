@@ -27,6 +27,7 @@ from torch import nn
 
 from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
 from gymrl_tpu_torch.distributed.mesh import constrain_batch, gather_pytree_batch
+from gymrl_tpu_torch.kernels import ppo as ppo_kernels
 from gymrl_tpu_torch.utils.device import resolve_device
 from gymrl_tpu_torch.utils.logging import get_logger
 
@@ -104,6 +105,32 @@ def clip_grads_by_global_norm_(grads: list[torch.Tensor], max_norm: float, mesh=
     scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+def clip_adam_plain_(opt: torch.optim.Adam, grads: list[torch.Tensor], max_norm: float,
+                     mesh=None, split: list[bool] | None = None) -> None:
+    """``clip_grads_by_global_norm_`` then ``opt.step()``, in place."""
+    clip_grads_by_global_norm_(grads, max_norm, mesh, split)
+    opt.step()
+
+
+def clip_adam_(opt: torch.optim.Adam, grads: list[torch.Tensor], max_norm: float,
+               mesh=None, split: list[bool] | None = None) -> None:
+    """optax's ``chain(clip_by_global_norm(max_norm), adam)`` on ``opt``'s
+    params, whose gradients are ``grads`` in ``opt``'s order: the kernels
+    ``grad_sq_norms`` and ``clip_adam`` (``kernels.ppo``) on the card,
+    ``clip_adam_plain_`` on the CPU. ``split`` (under a ``mesh``) marks the
+    gradients this rank holds one ``model`` split of, whose squares are
+    summed over ``model`` between the two launches, so every rank clips by
+    the whole net's norm."""
+    if grads and grads[0] is not None and grads[0].device.type == "cpu":
+        return clip_adam_plain_(opt, grads, max_norm, mesh, split)
+    sq = ppo_kernels.grad_sq_norms(grads)
+    if split is not None and any(split):
+        mask = torch.tensor(split, device=sq.device)
+        part = mesh.sum_(torch.where(mask, sq, 0.0), group="model")
+        sq = torch.where(mask, part, sq)
+    ppo_kernels.clip_adam(opt, grads, sq, max_norm)
 
 
 def frozen_copy(net: nn.Module) -> nn.Module:

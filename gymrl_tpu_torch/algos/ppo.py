@@ -40,7 +40,7 @@ from torch import nn
 from torch.func import functional_call
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, clip_grads_by_global_norm_,
+    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, clip_adam_,
 )
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -52,6 +52,8 @@ from gymrl_tpu_torch.core.normalization import (
 )
 from gymrl_tpu_torch.envs.registry import make_vec
 from gymrl_tpu_torch.envs.rollout import VecState
+from gymrl_tpu_torch.kernels import ppo as ppo_kernels
+from gymrl_tpu_torch.kernels.ppo import METRICS
 from gymrl_tpu_torch.nn import initializers as gl_init
 from gymrl_tpu_torch.nn.layers import Dense
 
@@ -199,11 +201,53 @@ class Rollout(NamedTuple):
     done: torch.Tensor  # f32[T, B]
 
 
+class LossMetrics(dict):
+    """The loss's metrics by name (``METRICS``), each a view of one ``[5]``
+    tensor, ``vec``, which a grad step hands to the mesh and keeps."""
+
+    def __init__(self, vec: torch.Tensor):
+        super().__init__(zip(METRICS, vec.unbind()))
+        self.vec = vec
+
+
 def categorical_logp_entropy(logits, action):
     logp_all = torch.log_softmax(logits, dim=-1)
     logp = logp_all.gather(-1, action.long()[..., None]).squeeze(-1)
     entropy = -(torch.exp(logp_all) * logp_all).sum(dim=-1)
     return logp, entropy
+
+
+def ppo_head_loss_plain(logits, values, action, logp_old, adv, returns, cfg):
+    """The dual-clip PPO loss after the net (JAX: ``PPOTrainer._loss``,
+    ``gymrl_tpu/algos/ppo.py``): ``(loss, metrics)`` with ``metrics`` the
+    detached ``[5]`` vector of ``METRICS``. Autograd gives its gradient."""
+    logp, entropy = categorical_logp_entropy(logits, action)
+    ratio = torch.exp(logp - logp_old)
+    surr1 = ratio * adv
+    surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
+    min_surr = torch.minimum(surr1, surr2)
+    # dual-clip (ref :285-292)
+    policy_obj = torch.where(
+        adv < 0.0, torch.maximum(min_surr, cfg.dual_clip * adv), min_surr
+    )
+    policy_loss = -policy_obj.mean()
+    value_loss = cfg.value_coef * torch.square(values - returns).mean()
+    entropy_mean = entropy.mean()
+    loss = policy_loss + value_loss - cfg.entropy_coef * entropy_mean
+    clip_frac = ((ratio < 1.0 - cfg.clip_eps) | (ratio > 1.0 + cfg.clip_eps)).float().mean()
+    approx_kl = (logp_old - logp).mean()
+    metrics = torch.stack([policy_loss, value_loss, entropy_mean, clip_frac, approx_kl])
+    return loss, metrics.detach()
+
+
+def ppo_head_loss(logits, values, action, logp_old, adv, returns, cfg):
+    """``(loss, metrics f32[5])`` of the loss head: the ``ppo_loss_fwd`` /
+    ``ppo_loss_bwd`` kernels (``kernels.ppo.PPOHeadLoss``) when the logits
+    are on a CUDA device, ``ppo_head_loss_plain`` on the CPU. On the card the
+    action is the packed minibatch's float32 column."""
+    if logits.device.type == "cpu":
+        return ppo_head_loss_plain(logits, values, action, logp_old, adv, returns, cfg)
+    return ppo_kernels.PPOHeadLoss.apply(logits, values, action, logp_old, adv, returns, cfg)
 
 
 def forward_bf16(net: nn.Module, obs: torch.Tensor):
@@ -363,62 +407,48 @@ class PPOTrainer(Trainer):
         return vec_state, obs_rms, roll, stats
 
     def _loss(self, net, obs, action, logp_old, adv, returns):
-        cfg = self.cfg
-        if cfg.sgd_bf16:
+        """The minibatch loss and its metrics: the net (f32, or bf16 with
+        ``sgd_bf16``), then the dual-clip head (``ppo_head_loss``: the
+        ``ppo_loss_fwd`` / ``ppo_loss_bwd`` kernels on the card, the plain
+        head on the CPU). ``action`` may be the packed float column."""
+        if self.cfg.sgd_bf16:
             logits, values = forward_bf16(net, obs)
         else:
             logits, values = net(obs)
-        logp, entropy = categorical_logp_entropy(logits, action)
-        ratio = torch.exp(logp - logp_old)
-        surr1 = ratio * adv
-        surr2 = torch.clamp(ratio, 1.0 - cfg.clip_eps, 1.0 + cfg.clip_eps) * adv
-        min_surr = torch.minimum(surr1, surr2)
-        # dual-clip (ref :285-292)
-        policy_obj = torch.where(
-            adv < 0.0, torch.maximum(min_surr, cfg.dual_clip * adv), min_surr
-        )
-        policy_loss = -policy_obj.mean()
-        value_loss = cfg.value_coef * torch.square(values - returns).mean()
-        entropy_mean = entropy.mean()
-        loss = policy_loss + value_loss - cfg.entropy_coef * entropy_mean
-        clip_frac = ((ratio < 1.0 - cfg.clip_eps) | (ratio > 1.0 + cfg.clip_eps)).float().mean()
-        approx_kl = (logp_old - logp).mean()
-        return loss, {
-            "policy_loss": policy_loss,
-            "value_loss": value_loss,
-            "entropy": entropy_mean,
-            "clip_frac": clip_frac,
-            "approx_kl": approx_kl,
-        }
+        loss, vec = ppo_head_loss(logits, values, action, logp_old, adv, returns, self.cfg)
+        return loss, LossMetrics(vec)
 
     def _sgd(self, ts: PPOTrainState, packed: torch.Tensor, perms: torch.Tensor):
         """Epochs of shuffled minibatches; returns metrics averaged over all
-        gradient steps. Under a mesh each rank takes its share of every
-        minibatch; gradients and metrics are averaged over ``data`` in one
-        all-reduce, and the clip reads the norm of the whole (split) net."""
-        cfg, mesh = self.cfg, self.mesh
-        net, opt = ts.params, ts.opt_state
-        names, params = zip(*net.named_parameters())
-        split = [n in net.model_split for n in names]
+        gradient steps."""
+        cfg = self.cfg
         d = self.obs_dim
         history = []
         for perm in perms:
             # one shuffle gather per epoch, then contiguous minibatch slices
             mb_xs = packed[perm].reshape(cfg.num_minibatches, cfg.minibatch_size, d + 4)
             for mb in mb_xs:
-                mb = self._share(mb)
-                loss, metrics = self._loss(
-                    net, mb[:, :d], mb[:, d].to(torch.int32), mb[:, d + 1],
-                    mb[:, d + 2], mb[:, d + 3],
-                )
-                opt.zero_grad(set_to_none=True)
-                loss.backward()
-                step_metrics = torch.stack([m.detach() for m in metrics.values()])
-                grads = [p.grad for p in params]
-                if mesh is not None:
-                    mesh.mean_(grads + [step_metrics])
-                clip_grads_by_global_norm_(grads, cfg.max_grad_norm, mesh, split)
-                opt.step()
-                history.append(step_metrics)
+                history.append(self._minibatch_step(ts, mb))
         means = torch.stack(history).mean(dim=0)
-        return dict(zip(metrics.keys(), means.unbind()))
+        return dict(zip(METRICS, means.unbind()))
+
+    def _minibatch_step(self, ts: PPOTrainState, mb: torch.Tensor) -> torch.Tensor:
+        """One clipped Adam step on the packed rows ``mb``; returns its
+        metrics, ``[5]`` in ``METRICS`` order. The loss reads its columns
+        where they lie in the rows; the clip and Adam are one ``clip_adam_``.
+        Under a mesh the rank takes its share of the rows; gradients and
+        metrics are averaged over ``data`` in one all-reduce, and the clip
+        reads the norm of the whole (split) net."""
+        cfg, mesh, net, opt = self.cfg, self.mesh, ts.params, ts.opt_state
+        d = self.obs_dim
+        mb = self._share(mb)
+        loss, metrics = self._loss(
+            net, mb[:, :d], mb[:, d], mb[:, d + 1], mb[:, d + 2], mb[:, d + 3])
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        names, params = zip(*net.named_parameters())
+        grads = [p.grad for p in params]
+        if mesh is not None:
+            mesh.mean_(grads + [metrics.vec])
+        clip_adam_(opt, grads, cfg.max_grad_norm, mesh, [n in net.model_split for n in names])
+        return metrics.vec

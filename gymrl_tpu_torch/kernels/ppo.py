@@ -1,0 +1,317 @@
+"""PPO's update kernels (``ppo.cu``) and their wrappers.
+
+One grad step of ``PPOTrainer._sgd`` on a CUDA device runs four kernels
+around PyTorch's MLP forward and backward:
+
+  * ``ppo_loss_fwd`` / ``ppo_loss_bwd`` (``PPOHeadLoss``): the dual-clip
+    loss head after the net, its five metrics, and its gradient with
+    respect to the logits and values. Plain version:
+    ``algos.ppo.ppo_head_loss_plain`` and autograd.
+  * ``grad_sq_norms`` / ``clip_adam``: each gradient's squared norm, then
+    the global-norm clip and ``torch.optim.Adam``'s update of the same
+    param, ``exp_avg`` and ``exp_avg_sq`` tensors, in place. Plain version:
+    ``algos.base.clip_adam_plain_``.
+
+The dispatch (``algos.ppo.ppo_head_loss``, ``algos.base.clip_adam_``) sends
+CUDA tensors here and CPU tensors to the plain versions. A wrapper refuses
+a CPU tensor, launches its kernel or raises, and adds one to
+``kernels.LAUNCHES[name]`` where it launches.
+
+The kernels read the loss's columns (action, logp_old, adv, v_target) where
+they lie, at their stride in the packed minibatch, and the optimizer's
+tables by value, so a step copies nothing to the card. Reductions are
+deterministic (``ppo.cu``). Adam's state stays in ``torch.optim.Adam``:
+``clip_adam`` counts each parameter's CPU ``step`` as Adam does and
+computes its bias corrections on the host in double, as Adam does, so
+checkpoints and every reader of ``opt.state`` see what the plain step
+leaves. One difference: the plain clip scales ``p.grad`` in place, the
+kernel reads it and leaves it unscaled.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from gymrl_tpu_torch import kernels
+from gymrl_tpu_torch.kernels import build
+
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ppo.cu")
+
+THREADS = 256  # threads per block
+CHUNK = 2048  # parameters per block of the multi-tensor kernels
+MAX_TENSORS = 32  # tensors per multi-tensor launch (their table is a kernel argument)
+MAX_ACTIONS = 32  # the loss's widest row of logits
+
+METRICS = ("policy_loss", "value_loss", "entropy", "clip_frac", "approx_kl")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# The C launchers' parameters in order (``ppo.cu``, ``extern "C"``).
+LOSS_FWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F] * 6 + [_I, _P]
+LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P]
+SQ_NORMS_ARGTYPES = [_P, _P, _I, _P, _P, _P, _I, _P]
+CLIP_ADAM_ARGTYPES = [_P] * 7 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
+
+_LIB: ctypes.CDLL | None = None
+# One self-resetting int32 ticket per (device, kernel) for the last-block reductions.
+_TICKETS: dict[tuple[torch.device, str], torch.Tensor] = {}
+
+
+def defines() -> dict[str, str]:
+    return {"PPO_THREADS": str(THREADS), "PPO_CHUNK": str(CHUNK),
+            "PPO_MAX_TENSORS": str(MAX_TENSORS), "PPO_MAX_ACTIONS": str(MAX_ACTIONS)}
+
+
+def _library() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = build.load("ppo", SOURCE, defines())
+        for fn, argtypes in (("ppo_loss_fwd_launch", LOSS_FWD_ARGTYPES),
+                             ("ppo_loss_bwd_launch", LOSS_BWD_ARGTYPES),
+                             ("grad_sq_norms_launch", SQ_NORMS_ARGTYPES),
+                             ("clip_adam_launch", CLIP_ADAM_ARGTYPES)):
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def _ticket(device: torch.device, name: str) -> torch.Tensor:
+    key = (device, name)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def _launch(fn, args, device: torch.device, what: str) -> None:
+    """``fn(*args, device index, stream)``, each tensor of ``args`` passed as
+    its address; raises on a nonzero ``cudaError_t``."""
+    # The launcher sets ``device`` in its own CUDA runtime; entering it here too
+    # lets PyTorch's runtime restore its current device afterwards.
+    with torch.cuda.device(device):
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 device.index, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
+
+
+def _check_device(x: torch.Tensor, what: str, plain: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} launches a CUDA kernel, but its input is on {x.device}; "
+                         f"the plain version is {plain}")
+
+
+def _expect(name: str, x: torch.Tensor, shape: tuple, device: torch.device,
+            contiguous: bool = True) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the batch on {device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} is {x.dtype}, the kernel takes torch.float32")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, the kernel takes {shape}")
+    if contiguous and not x.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _f32(x: float) -> float:
+    return float(np.float32(x))
+
+
+# -- the loss head ------------------------------------------------------------------
+
+
+def _head_args(logits, values, action, logp_old, adv, returns, cfg,
+               what: str) -> tuple[list, list, list]:
+    """The loss launchers' arguments before their outputs: the inputs checked
+    (the four columns as 1-D views at any stride) and the scalars as the
+    plain path rounds them."""
+    _check_device(logits, what, "algos.ppo.ppo_head_loss_plain")
+    dev = logits.device
+    if logits.dim() != 2 or not 1 <= logits.shape[1] <= MAX_ACTIONS or logits.shape[0] < 1:
+        raise ValueError(f"logits have shape {tuple(logits.shape)}; the kernel takes [n, A] "
+                         f"with n >= 1 and 1 <= A <= {MAX_ACTIONS}")
+    n, a = logits.shape
+    _expect("logits", logits, (n, a), dev)
+    _expect("values", values, (n,), dev)
+    columns = {"action": action, "logp_old": logp_old, "adv": adv, "returns": returns}
+    for name, x in columns.items():
+        _expect(name, x, (n,), dev, contiguous=False)
+    ptrs = [logits, values, *columns.values()]
+    strides = [x.stride(0) for x in columns.values()]
+    return ptrs, [n, a, *strides], [
+        _f32(1.0 - cfg.clip_eps), _f32(1.0 + cfg.clip_eps), _f32(cfg.dual_clip),
+        _f32(cfg.value_coef), _f32(cfg.entropy_coef), _f32(1.0 / n)]
+
+
+def ppo_loss_fwd(logits, values, action, logp_old, adv, returns, cfg):
+    """``algos.ppo.ppo_head_loss_plain``'s ``(loss f32[], metrics f32[5])``, in one
+    launch. ``action`` is float32, as the packed minibatch holds it."""
+    ptrs, ints, floats = _head_args(logits, values, action, logp_old, adv, returns, cfg,
+                                    "ppo_loss_fwd")
+    dev = logits.device
+    n = ints[0]
+    grid = -(-n // THREADS)
+    partials = torch.empty(grid * len(METRICS), dtype=torch.float64, device=dev)
+    loss = torch.empty((), dtype=torch.float32, device=dev)
+    metrics = torch.empty(len(METRICS), dtype=torch.float32, device=dev)
+    _launch(_library().ppo_loss_fwd_launch,
+            [*ptrs, partials, _ticket(dev, "ppo_loss_fwd"), loss, metrics, *ints, *floats],
+            dev, "ppo_loss_fwd")
+    kernels.LAUNCHES["ppo_loss_fwd"] += 1
+    return loss, metrics
+
+
+def ppo_loss_bwd(logits, values, action, logp_old, adv, returns, grad_out, cfg):
+    """The gradient of ``ppo_loss_fwd``'s loss times ``grad_out`` (f32[], on
+    the card) with respect to ``logits`` and ``values``, in one launch."""
+    ptrs, ints, floats = _head_args(logits, values, action, logp_old, adv, returns, cfg,
+                                    "ppo_loss_bwd")
+    dev = logits.device
+    _expect("grad_out", grad_out, (), dev)
+    dlogits = torch.empty_like(logits)
+    dvalues = torch.empty_like(values)
+    _launch(_library().ppo_loss_bwd_launch, [*ptrs, grad_out, dlogits, dvalues, *ints, *floats],
+            dev, "ppo_loss_bwd")
+    kernels.LAUNCHES["ppo_loss_bwd"] += 1
+    return dlogits, dvalues
+
+
+class PPOHeadLoss(torch.autograd.Function):
+    """``algos.ppo.ppo_head_loss_plain`` on the card: forward ``ppo_loss_fwd``,
+    backward ``ppo_loss_bwd``. The metrics are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, logits, values, action, logp_old, adv, returns, cfg):
+        loss, metrics = ppo_loss_fwd(logits, values, action, logp_old, adv, returns, cfg)
+        ctx.save_for_backward(logits, values, action, logp_old, adv, returns)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(metrics)
+        return loss, metrics
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_loss, grad_metrics):
+        dlogits, dvalues = ppo_loss_bwd(*ctx.saved_tensors, grad_loss.contiguous(), ctx.cfg)
+        return dlogits, dvalues, None, None, None, None, None
+
+
+# -- the global-norm clip with Adam --------------------------------------------------
+
+
+def _pieces(n: int) -> list[slice]:
+    """The multi-tensor launches of a table of ``n`` tensors, in order."""
+    return [slice(a, min(a + MAX_TENSORS, n)) for a in range(0, n, MAX_TENSORS)]
+
+
+def _chunks(numel: int) -> int:
+    return -(-numel // CHUNK)
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def _check_grads(grads: list[torch.Tensor], what: str) -> torch.device:
+    if not grads:
+        raise ValueError(f"{what}: no gradients")
+    if any(g is None for g in grads):
+        raise ValueError(f"{what}: a gradient is None")
+    _check_device(grads[0], what, "algos.base.clip_adam_plain_")
+    dev = grads[0].device
+    for i, g in enumerate(grads):
+        _expect(f"grads[{i}]", g, tuple(g.shape), dev)
+        if g.numel() == 0:
+            raise ValueError(f"grads[{i}] is empty")
+    return dev
+
+
+def grad_sq_norms(grads: list[torch.Tensor]) -> torch.Tensor:
+    """f32[len(grads)]: each gradient's squared norm (what
+    ``torch._foreach_norm`` gives the clip, squared), summed in float64 in a
+    fixed order; one launch per ``MAX_TENSORS`` tensors."""
+    dev = _check_grads(grads, "grad_sq_norms")
+    sq = torch.empty(len(grads), dtype=torch.float32, device=dev)
+    lib = _library()
+    for piece in _pieces(len(grads)):
+        part = grads[piece]
+        numels = [g.numel() for g in part]
+        partials = torch.empty(sum(map(_chunks, numels)), dtype=torch.float64, device=dev)
+        arrays = (_ptrs(part), (ctypes.c_longlong * len(part))(*numels))
+        _launch(lib.grad_sq_norms_launch,
+                [ctypes.addressof(arrays[0]), ctypes.addressof(arrays[1]), len(part),
+                 sq.data_ptr() + 4 * piece.start, partials, _ticket(dev, "grad_sq_norms")],
+                dev, "grad_sq_norms")
+        kernels.LAUNCHES["grad_sq_norms"] += 1
+    return sq
+
+
+def _adam_scalars(group: dict) -> tuple[float, float, float, bool]:
+    """(beta1, beta2, eps, foreach) of the param group, which the kernel
+    computes as ``torch.optim.Adam`` does; raises on an option it does not
+    implement."""
+    for key, plain in (("amsgrad", False), ("weight_decay", 0), ("maximize", False),
+                       ("capturable", False), ("differentiable", False),
+                       ("decoupled_weight_decay", False)):
+        if group.get(key, plain) != plain:
+            raise ValueError(f"clip_adam implements Adam without {key}={group[key]}")
+    if group.get("fused"):
+        raise ValueError("clip_adam implements the foreach and per-tensor Adam, not fused")
+    beta1, beta2 = group["betas"]
+    # foreach=None is the default, which is foreach for parameters on the card
+    return float(beta1), float(beta2), float(group["eps"]), group.get("foreach") is not False
+
+
+def clip_adam(opt: torch.optim.Adam, grads: list[torch.Tensor], sq: torch.Tensor,
+              max_norm: float) -> None:
+    """The ``clip_adam`` kernel: the global norm from the squares ``sq``, the
+    clip scale, and Adam's step of ``opt`` (one param group, as
+    ``algos.base.adam`` builds it) with the scaled ``grads``, in place; one
+    launch per ``MAX_TENSORS`` tensors."""
+    dev = _check_grads(grads, "clip_adam")
+    if len(opt.param_groups) != 1:
+        raise ValueError(f"clip_adam steps one param group, not {len(opt.param_groups)}")
+    group = opt.param_groups[0]
+    ps = list(group["params"])
+    if len(ps) != len(grads):
+        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
+    _expect("sq", sq, (len(grads),), dev)
+    beta1, beta2, eps, foreach = _adam_scalars(group)
+    states = [opt.state[p] for p in ps]
+    if not all({"step", "exp_avg", "exp_avg_sq"} <= set(s) for s in states):
+        raise ValueError("clip_adam needs Adam's state made up front (algos.base.adam)")
+    for i, (p, g, s) in enumerate(zip(ps, grads, states)):
+        _expect(f"param {i}", p.data, tuple(g.shape), dev)
+        _expect(f"exp_avg {i}", s["exp_avg"], tuple(g.shape), dev)
+        _expect(f"exp_avg_sq {i}", s["exp_avg_sq"], tuple(g.shape), dev)
+        if s["step"].device.type != "cpu":
+            raise ValueError("clip_adam counts Adam's steps on the host (capturable is off)")
+
+    lib = _library()
+    lr = float(group["lr"])
+    steps = [s["step"] for s in states]
+    torch._foreach_add_(steps, 1.0)
+    step_sizes, bc2_terms = [], []
+    for t in steps:  # on the host in double, as _single/_multi_tensor_adam
+        step = t.item()  # a CPU tensor: no sync with the card
+        bias_correction2_sqrt = (1 - beta2 ** step) ** 0.5
+        step_sizes.append(-(lr / (1 - beta1 ** step)))
+        # foreach divides by the scalar; one tensor at a time, `tensor / float`
+        # multiplies by the double reciprocal rounded to float32
+        bc2_terms.append(bias_correction2_sqrt if foreach else 1.0 / bias_correction2_sqrt)
+    for piece in _pieces(len(ps)):
+        k = piece.stop - piece.start
+        arrays = (_ptrs(ps[piece]), _ptrs(grads[piece]),
+                  _ptrs([s["exp_avg"] for s in states[piece]]),
+                  _ptrs([s["exp_avg_sq"] for s in states[piece]]),
+                  (ctypes.c_longlong * k)(*(p.numel() for p in ps[piece])),
+                  (ctypes.c_float * k)(*step_sizes[piece]),
+                  (ctypes.c_float * k)(*bc2_terms[piece]))
+        _launch(lib.clip_adam_launch,
+                [*map(ctypes.addressof, arrays), k, sq, len(grads), _f32(max_norm),
+                 _f32(1 - beta1), _f32(beta2), _f32(1 - beta2), _f32(eps), int(foreach)],
+                dev, "clip_adam")
+        kernels.LAUNCHES["clip_adam"] += 1
