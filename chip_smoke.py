@@ -251,13 +251,22 @@ only if all of them pass.
      the policy objective, whose terms cancel, is itself ~1e-5 off and is
      printed), ``clip_frac`` equal to the plain one, dlogits and dvalues within
      1e-6 of each tensor's largest entry; rows within 1e-6 of 1 ± clip_eps
-     or of ``min_surr == 3 * adv`` are counted and left out of dlogits.
-     (b) The squares: ``grad_sq_norms`` on a minibatch's real gradients, as
-     they come and with each tensor scaled by its own power of 2, and on a
-     40-tensor table (two launches), each square within 1e-6 of its float64
-     sum relative to itself, and within 1e-6 of the largest plain square
-     (``torch._foreach_norm``, squared) against the plain one, at both
-     shapes. The clip with Adam: ``clip_adam_`` against ``clip_adam_plain_`` for
+     or of ``min_surr == 3 * adv`` are counted and left out of dlogits. The
+     same bounds, but for covering the band, on the first 1, 64, 16,383 and
+     16,384 rows of the bench's first minibatch (one block; 64 blocks, with
+     and without a ragged last block), on all of them with the
+     columns spread apart (the strided loads; the minibatch's own take one
+     float4 a row), and on ``ppo_cartpole``'s rows (A = 2: every 64-row
+     minibatch of an epoch, and the same shapes from its rows repeated to
+     16,384). Two ``ppo_loss_fwd`` launches on the same inputs must give the
+     same bits. (b) The squares: ``grad_sq_norms`` on a minibatch's real
+     gradients, as they come and with each tensor scaled by its own power
+     of 2, on a 40-tensor table (two launches), and on views of one buffer
+     off 16 bytes or with a ``numel % 4`` tail, each square within 1e-6 of
+     its float64 sum relative to itself, and within 1e-6 of the largest
+     plain square (``torch._foreach_norm``, squared) against the plain one,
+     at both shapes; two launches give the same bits. The clip with Adam:
+     ``clip_adam_`` against ``clip_adam_plain_`` for
      10 steps from copies of the trained net and Adam (the bench's with
      ``foreach``, the CLI's without), fed the same real gradients scaled to a
      global norm of 5 (the clip at 0.5 acts) and 0.05 (it does not): params
@@ -269,7 +278,10 @@ only if all of them pass.
      (``_dist_check``). (d) ms per call of each kernel, its plain version
      and, for ``grad_sq_norms`` and ``clip_adam``, the library call
      (``torch._foreach_norm``; the clip and ``torch.optim.Adam(fused=True)``)
-     at both shapes, the device times from traces, and the bound. (e) The
+     at both shapes, the device times from traces, and the bound; each
+     kernel's registers, stack and spills from ``nvcc -Xptxas -v``, none of
+     either for ``ppo_loss_fwd`` (every instantiation) and
+     ``grad_sq_norms``. (e) The
      CUDA launches of one grad step (``PPOTrainer._minibatch_step``) on the
      kernels and on the plain versions, at both shapes, and the host time of
      its parts (forward, head, backward, clip with Adam) by the host clock,
@@ -2945,6 +2957,13 @@ ADAM_NORMS = {"active": 5.0, "inactive": 0.05}  # the gradients' global norm; th
 SQ_NORMS_TOL = 1e-6
 # a table past one launch's MAX_TENSORS: sizes around the kernel's CHUNK of 2048, and one
 SQ_NORMS_TABLE = (1, 3, 2047, 2048, 2049, 4096, 6000, 65536, 17, 256) * 4
+# (storage offset, numel) of views into one buffer: off 16 bytes (offsets 1-3), so they take
+# the kernel's scalar loads, or on it with a numel % 4 tail; the value head's bias is 1 float
+SQ_NORMS_VIEWS = ((1, 4099), (2, 2050), (3, 7), (0, 4097), (1, 65537), (0, 1), (2, 2048),
+                  (3, 6001), (0, 65539), (1, 1))
+# rows of the loss head beside the minibatches: one block (1, 64), 64 blocks with a ragged
+# last block (16,383) and without (16,384)
+HEAD_ROWS = (1, 64, 16383, 16384)
 # Float32 operations counted in ppo.cu for a row of A = 4 logits (each add, multiply,
 # compare, select, exp and log as one), and per parameter for the multi-tensor kernels.
 LOSS_FWD_OPS_PER_ROW = 64
@@ -3028,15 +3047,31 @@ def _exact_head(cfg, rows: dict) -> list[float]:
             m["entropy"], m["clipped"], m["kl"]]
 
 
-def _head_case(trainer, net, mb) -> dict:
+def _spread(cols):
+    """The four columns copied into rows of 8 floats at 0, 2, 4 and 6: not
+    side by side, so the loss kernels read them at their strides."""
+    rows = torch.zeros(cols[0].shape[0], 8, device=cols[0].device)
+    for j, c in enumerate(cols):
+        rows[:, 2 * j] = c
+    return rows[:, 0], rows[:, 2], rows[:, 4], rows[:, 6]
+
+
+def _head_case(trainer, net, mb, spread: bool = False) -> dict:
     """Phase 19 (a) on one minibatch: ``PPOHeadLoss`` (both kernels) against
     ``ppo_head_loss_plain`` and autograd, from the same logits and values;
-    the loss and metrics also against their exact means."""
+    the loss and metrics also against their exact means; and whether two
+    ``ppo_loss_fwd`` launches give the same bits. The columns are the
+    minibatch's own (side by side: the float4 loads), or ``_spread``."""
     from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
-    from gymrl_tpu_torch.kernels.ppo import METRICS, PPOHeadLoss
+    from gymrl_tpu_torch.kernels.ppo import METRICS, PPOHeadLoss, columns_packed, ppo_loss_fwd
 
     cfg = trainer.cfg
     cols = _columns(trainer, mb)
+    if spread:
+        cols = _spread(cols)
+    packed = columns_packed(*cols)
+    if packed == spread:
+        raise AssertionError(f"the columns take the {'packed' if packed else 'strided'} loads")
     logits, values = _net_outputs(trainer, net, mb)
     out = {}
     for route, head in (("kernel", PPOHeadLoss.apply), ("plain", ppo_head_loss_plain)):
@@ -3050,16 +3085,19 @@ def _head_case(trainer, net, mb) -> dict:
     ties = bands.pop("ties")
     exact = _exact_head(cfg, rows)
     names = ("loss",) + METRICS
-    rel = {route: {k: abs(x - e) / abs(e) for k, x, e in zip(names, vals, exact)
+    rel = {route: {k: abs(x - e) / abs(e) if e else abs(x) for k, x, e in zip(names, vals, exact)
                    if k != "clip_frac"} for route, vals in (("kernel", vk), ("plain", vp))}
+    twice = [torch.cat([x.reshape(-1) for x in ppo_loss_fwd(logits, values, *cols, cfg)])
+             for _ in range(2)]
     keep = ~ties
     dl_err = float((dlk - dlp)[keep].abs().max()) if keep.any() else 0.0
     dv_err = float((dvk - dvp).abs().max())
     return {
-        "rows": mb.shape[0], **bands, "tie_rows": int(ties.sum()),
+        "rows": mb.shape[0], "packed": packed, **bands, "tie_rows": int(ties.sum()),
         "rel_err": rel["kernel"], "plain_rel_err": rel["plain"],
-        "kernel_vs_plain_rel": {k: abs(a - b) / abs(b) for k, a, b in zip(names, vk, vp)
-                                if k != "clip_frac"},
+        "kernel_vs_plain_rel": {k: abs(a - b) / abs(b) if b else abs(a)
+                                for k, a, b in zip(names, vk, vp) if k != "clip_frac"},
+        "same_bits": bool(torch.equal(*twice)),
         "clip_frac_rows_apart": abs(vk[4] - vp[4]) * mb.shape[0],
         "dlogits_err": dl_err, "dlogits_scale": float(dlp.abs().max()),
         "dvalues_err": dv_err, "dvalues_scale": float(dvp.abs().max()),
@@ -3069,7 +3107,9 @@ def _head_case(trainer, net, mb) -> dict:
 
 
 def _merge_head(cases: list[dict]) -> dict:
-    out = {"rows": sum(c["rows"] for c in cases), "minibatches": len(cases)}
+    out = {"rows": sum(c["rows"] for c in cases), "minibatches": len(cases),
+           "packed": sorted({c["packed"] for c in cases}),
+           "same_bits": all(c["same_bits"] for c in cases)}
     for k in ("below", "inside", "above", "dual_clipped", "tie_rows"):
         out[k] = sum(c[k] for c in cases)
     for key in ("rel_err", "plain_rel_err", "kernel_vs_plain_rel"):
@@ -3088,14 +3128,16 @@ def _covered(r: dict) -> bool:
     return all(r[k] for k in ("below", "inside", "above", "dual_clipped"))
 
 
-def _check_head(label: str, r: dict, tie_rows_per_case: list[int]) -> None:
+def _check_head(label: str, r: dict, tie_rows_per_case: list[int], cover: bool = True) -> None:
     breaks = [f"{k} {v} > {HEAD_RTOL}" for k, v in r["rel_err"].items() if not v <= HEAD_RTOL]
+    if not r["same_bits"]:
+        breaks.append("two ppo_loss_fwd launches on the same inputs gave other bits")
     breaks += [f"{k} {r[f'{k}_of_scale']} > {HEAD_GRAD_TOL}" for k in ("dlogits", "dvalues")
                if not r[f"{k}_of_scale"] <= HEAD_GRAD_TOL]
     # clip_frac exact, but for the rows that tie at the band's edges
     if r["clip_frac_rows_apart"] > max(tie_rows_per_case):
         breaks.append(f"clip_frac {r['clip_frac_rows_apart']} rows apart")
-    if not _covered(r):
+    if cover and not _covered(r):
         breaks.append(f"the rows do not cover the band and the dual clip: {r}")
     if breaks:
         raise AssertionError(f"{label}: " + "; ".join(breaks))
@@ -3126,22 +3168,54 @@ def _covering_rows(name: str, device: torch.device):
                          f"the dual clip after {HEAD_MAX_ITERS} iterations")
 
 
+def _head_shapes(label: str, trainer, net, mb, rows=HEAD_ROWS) -> dict:
+    """Phase 19 (a) beyond the minibatches: the first ``k`` rows of ``mb``
+    for each ``k`` of ``rows`` (the kernel's one-block and many-block grids),
+    and all of them with their columns ``_spread`` (the strided loads); each
+    held to the minibatches' bounds but for covering the band."""
+    cases = [_head_case(trainer, net, mb[:k]) for k in rows if k <= mb.shape[0]]
+    cases.append(_head_case(trainer, net, mb, spread=True))
+    for c in cases:
+        _check_head(f"phase 19a {label} {c['rows']} rows packed={c['packed']}",
+                    _merge_head([c]), [c["tie_rows"]], cover=False)
+    r = _merge_head(cases)
+    r.update(case=label, row_counts=[c["rows"] for c in cases])
+    log("phase 19a loss shapes: " + json.dumps(r))
+    return r
+
+
 def _head_phase(device: torch.device) -> dict:
     """Phase 19 (a): every minibatch of the first epoch of an iteration, of
     the bench config (32 of 16,384 rows, logits from ``forward_bf16``) and of
     ``ppo_lunarlander`` (32 of 64 rows, f32), logp_old from that iteration's
-    rollout and the params some iterations later (``_covering_rows``)."""
+    rollout and the params some iterations later (``_covering_rows``); then
+    ``_head_shapes`` on the bench's first minibatch (A = 4) and on
+    ``ppo_cartpole``'s rows (A = 2: its first epoch's 64-row minibatches, and
+    its 2,048 rows repeated to 16,384) after one iteration."""
     results = {}
     for name in ("bench", "ppo_lunarlander"):
         trainer, ts, packed, perms, older = _covering_rows(name, device)
-        cases = [_head_case(trainer, ts.params, mb)
-                 for mb in _minibatches(trainer, packed, perms, trainer.cfg.num_minibatches)]
+        mbs = _minibatches(trainer, packed, perms, trainer.cfg.num_minibatches)
+        cases = [_head_case(trainer, ts.params, mb) for mb in mbs]
         r = _merge_head(cases)
         r.update(case=name, iterations_older=older)
         log("phase 19a loss: " + json.dumps(r))
         _check_head(f"phase 19a {name}", r, [c["tie_rows"] for c in cases])
         results[name] = r
-        del trainer, ts, packed
+        if name == "bench":
+            results["bench shapes"] = _head_shapes("bench", trainer, ts.params, mbs[0])
+        del trainer, ts, packed, mbs
+    trainer = _dist_trainer("ppo_cartpole", device)
+    ts, packed, perms = _rows_of(trainer)
+    mbs = _minibatches(trainer, packed, perms, trainer.cfg.num_minibatches)
+    cases = [_head_case(trainer, ts.params, mb) for mb in mbs]
+    r = _merge_head(cases)
+    r.update(case="ppo_cartpole")
+    log("phase 19a loss: " + json.dumps(r))
+    _check_head("phase 19a ppo_cartpole", r, [c["tie_rows"] for c in cases], cover=False)
+    results["ppo_cartpole"] = r
+    tiled = packed[perms[0]].repeat(-(-HEAD_ROWS[-1] // packed.shape[0]), 1)
+    results["ppo_cartpole shapes"] = _head_shapes("ppo_cartpole", trainer, ts.params, tiled)
     return results
 
 
@@ -3231,9 +3305,11 @@ def _sq_norms_case(trainer, ts, packed, perms, name: str) -> dict:
     gradients, as they come and with tensor ``i`` scaled by
     ``2^(3·(i mod 7) − 9)`` (exact), so that tensors' squares lie 2^-18 to
     2^18 apart and a partial given to the wrong tensor shows; then on a
-    table of ``len(SQ_NORMS_TABLE)`` tensors, more than one launch holds.
-    Each square is held to ``SQ_NORMS_TOL`` of its own exact size, and to
-    ``SQ_NORMS_TOL`` of the largest plain square against the plain one."""
+    table of ``len(SQ_NORMS_TABLE)`` tensors, more than one launch holds,
+    and on views of one buffer (``SQ_NORMS_VIEWS``) off 16 bytes or with a
+    ``numel % 4`` tail. Each square is held to ``SQ_NORMS_TOL`` of its own
+    exact size, and to ``SQ_NORMS_TOL`` of the largest plain square against
+    the plain one; two launches on each table must give the same bits."""
     from gymrl_tpu_torch.kernels.ppo import grad_sq_norms
 
     device = trainer.device
@@ -3242,14 +3318,25 @@ def _sq_norms_case(trainer, ts, packed, perms, name: str) -> dict:
     gen = torch.Generator(device=device).manual_seed(19)
     table = [torch.randn(n, generator=gen, device=device) * 2.0 ** (3 * (i % 7) - 9)
              for i, n in enumerate(SQ_NORMS_TABLE)]
-    r = {"case": name}
-    for label, grads in (("real", real), ("scaled", scaled), ("table", table)):
-        r[label] = _sq_rel_errs(grad_sq_norms(grads), grads)
+    # each view starts `offset` floats past a multiple of 4 floats (16 bytes) of one buffer
+    starts = [4 * sum(-(-(o + n) // 4) for o, n in SQ_NORMS_VIEWS[:i]) + offset
+              for i, (offset, n) in enumerate(SQ_NORMS_VIEWS)]
+    buffer = torch.randn(starts[-1] + SQ_NORMS_VIEWS[-1][1], generator=gen, device=device)
+    views = [buffer[s:s + n].mul_(2.0 ** (3 * (i % 7) - 9))
+             for i, (s, (_, n)) in enumerate(zip(starts, SQ_NORMS_VIEWS))]
+    r = {"case": name, "views_off_16_bytes": sum(v.data_ptr() % 16 != 0 for v in views)}
+    if r["views_off_16_bytes"] != sum(o != 0 for o, _ in SQ_NORMS_VIEWS):
+        raise AssertionError(f"phase 19b: {r['views_off_16_bytes']} views off 16 bytes")
+    labels = ("real", "scaled", "table", "views")
+    for label, grads in zip(labels, (real, scaled, table, views)):
+        first, second = grad_sq_norms(grads), grad_sq_norms(grads)
+        r[label] = {**_sq_rel_errs(first, grads), "same_bits": bool(torch.equal(first, second))}
     log("phase 19b squares: " + json.dumps(r))
-    bad = {f"{label} {k}": r[label][k] for label in ("real", "scaled", "table")
+    bad = {f"{label} {k}": r[label][k] for label in labels
            for k in ("rel_err_exact", "err_of_largest") if not r[label][k] <= SQ_NORMS_TOL}
+    bad.update({f"{label} same_bits": False for label in labels if not r[label]["same_bits"]})
     if bad:
-        raise AssertionError(f"phase 19b {name} squares: {bad} > {SQ_NORMS_TOL}")
+        raise AssertionError(f"phase 19b {name} squares: {bad} (bound {SQ_NORMS_TOL})")
     return r
 
 
@@ -3439,6 +3526,57 @@ def _update_checks(device: torch.device) -> dict:
     return out
 
 
+def _ptxas_report() -> dict:
+    """Phase 19 (d): each kernel of ``ppo.cu`` as ``nvcc -Xptxas -v`` reports
+    it under the build's flags and defines: registers, stack frame and spill
+    bytes. Fails unless every ``ppo_loss_fwd`` instantiation and
+    ``grad_sq_norms`` keep to registers (no stack, no spills)."""
+    import re
+    import subprocess
+
+    from gymrl_tpu_torch.kernels import build
+    from gymrl_tpu_torch.kernels import ppo as kp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        done = subprocess.run([build.find_nvcc(), *build.FLAGS, *build.define_flags(kp.defines()),
+                               "-Xptxas", "-v", "-o", os.path.join(tmp, "ppo.so"), kp.SOURCE],
+                              capture_output=True, text=True)
+    if done.returncode != 0:
+        raise AssertionError(f"nvcc -Xptxas -v failed on ppo.cu:\n{done.stderr}")
+    names = ((r"ppo_loss_fwdILi(\d+)ELb([01])E", "ppo_loss_fwd<{}, {}>"),
+             (r"ppo_loss_bwdILi(\d+)E", "ppo_loss_bwd<{}>"), (r"grad_sq_norms", "grad_sq_norms"),
+             (r"clip_adam", "clip_adam"))
+    report, name = {}, None
+    for line in done.stderr.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            found = [(pat, fmt) for pat, fmt in names if re.search(pat, m.group(1))]
+            name = None
+            if found:
+                pat, fmt = found[0]
+                name = fmt.format(*re.search(pat, m.group(1)).groups())
+                report.setdefault(name, {})
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            report[name].update(stack=int(m[1]), spill_stores=int(m[2]), spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[name]["registers"] = int(m[1])
+    log("phase 19d ptxas: " + json.dumps(report))
+    held = [k for k in report if k.startswith(("ppo_loss_fwd", "grad_sq_norms"))]
+    if len(held) != 13:  # 6 widths x 2 column layouts, and grad_sq_norms
+        raise AssertionError(f"ptxas reported {held}")
+    bad = {k: report[k] for k in held
+           if report[k].get("stack", 1) or report[k].get("spill_stores", 1)
+           or report[k].get("spill_loads", 1)}
+    if bad:
+        raise AssertionError(f"phase 19d: stack or spills in {bad}")
+    return report
+
+
 def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) -> dict:
     """Phase 19: PPO's update kernels against their plain versions on the
     card: (a) the loss head, (b) the squares and the clip with Adam, (c)
@@ -3448,6 +3586,7 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
     out["time"] = [r for name in ("bench", "ppo_lunarlander")
                    for r in _update_times(device, name, calls)]
     if device.type == "cuda":
+        out["ptxas"] = _ptxas_report()
         out["grad_step"] = [_step_launches(device, name) for name in ("bench", "ppo_lunarlander")]
     return out
 

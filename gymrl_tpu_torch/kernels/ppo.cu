@@ -15,10 +15,23 @@
 //
 // What bounds them: bytes, and far below that the launch. The loss reads 36 B a row and its
 // gradient 56 B (a few us at most at 16,384 rows); clip_adam moves 28 B a parameter (5.6 MB
-// for ActorCritic at hidden 256, ~1.7 us at 3.35 TB/s). Their design: one thread per row for
-// the loss (its A logits and its four packed columns at the row's stride, no copies), and
-// multi-tensor kernels over a table of up to PPO_MAX_TENSORS tensors passed by value, so a
-// step needs no host-to-device copy although every step's gradients are new tensors.
+// for ActorCritic at hidden 256, ~1.7 us at 3.35 TB/s). Their design: the loss reads its A
+// logits and its four packed columns where they lie (no copies), and the multi-tensor kernels
+// take a table of up to PPO_MAX_TENSORS tensors by value, so a step needs no host-to-device
+// copy although every step's gradients are new tensors. At these sizes a kernel's time is its
+// chain of dependent latencies, so the two reductions are built to keep that chain short:
+//   ppo_loss_fwd   templated on the padded row width P, so a row's logits, exps and
+//                  log-probabilities live in registers (unrolled loops, the gather a select);
+//                  the four columns in one float4 load where they sit side by side on 16 B;
+//                  one row per thread, so every SM that holds rows takes a short chain; the
+//                  five sums in one interleaved block reduction; one block finishes in place,
+//                  more write their sums and the last block reduces them all at once. (A
+//                  cluster of at most 8 blocks reducing through distributed shared memory,
+//                  no ticket, was 1.6x slower on an H100 at 16,384 rows: 8 SMs, 2 rows a
+//                  thread.)
+//   grad_sq_norms  16-byte loads where a tensor lies on 16 B, all of a thread's loads in
+//                  flight before it sums; the last block stages every partial in shared memory
+//                  at once, and a warp per tensor sums that tensor's with a shuffle tree.
 //
 // Deterministic: no float atomics. A reduction across blocks writes per-block partials in
 // float64; the last block to finish (an integer ticket that resets itself) sums them in a
@@ -43,6 +56,9 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #define THREADS PPO_THREADS
 #define CHUNK PPO_CHUNK
@@ -50,23 +66,41 @@
 #define MAX_ACTIONS PPO_MAX_ACTIONS
 #define N_METRICS 5
 
-static_assert(THREADS % 32 == 0 && THREADS >= MAX_TENSORS, "whole warps; a thread per tensor");
-static_assert((MAX_ACTIONS & (MAX_ACTIONS - 1)) == 0, "a power of two of lanes");
+constexpr int WARPS = THREADS / 32;
+constexpr int LOADS = CHUNK / (4 * THREADS);  // float4 loads a thread of grad_sq_norms makes
+constexpr int STAGED = 4 * THREADS;     // partials the norms' last block stages in shared memory
+
+static_assert(THREADS % 32 == 0 && (WARPS & (WARPS - 1)) == 0 && WARPS <= 32,
+              "whole warps, a power of two of them");
+static_assert(MAX_ACTIONS == 32, "with_lanes instantiates P = 1, 2, 4, ..., 32");
+static_assert(MAX_TENSORS <= 32, "NormTable::aligned holds a bit per tensor");
+static_assert(CHUNK % (4 * THREADS) == 0, "a chunk is whole float4 loads of every thread");
 
 namespace {
 
-// The sum of one float64 per thread of the block, in a fixed order; valid in thread 0.
-// Every thread of the block calls it.
-__device__ double block_sum(double x) {
-  __shared__ double warp_sums[THREADS / 32];
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-  __syncthreads();  // the previous call's sums have been read
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = x;
+// The sums over the block of K float64 per thread, each in a fixed order: a shuffle tree in
+// every warp, the K trees interleaved, then warp 0's tree over the warps' sums. Valid in
+// thread 0. Every thread calls it; between two calls a barrier (last_block's) must pass.
+template <int K>
+__device__ __forceinline__ void block_sums(double (&s)[K]) {
+  __shared__ double warp_sums[K][WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] += __shfl_down_sync(0xffffffffu, s[k], off);
+  if (lane == 0)
+#pragma unroll
+    for (int k = 0; k < K; ++k) warp_sums[k][warp] = s[k];
   __syncthreads();
-  double s = 0.0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < THREADS / 32; ++w) s += warp_sums[w];
-  return s;
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] = lane < WARPS ? warp_sums[k][lane] : 0.0;
+#pragma unroll
+    for (int off = WARPS / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int k = 0; k < K; ++k) s[k] += __shfl_down_sync(0xffffffffu, s[k], off);
+  }
 }
 
 // Whether this block is the last of the grid to get here. Every thread calls it after
@@ -94,36 +128,69 @@ struct HeadIn {
   float dual_clip, value_coef, entropy_coef, inv_n;
 };
 
-// One row's forward values, as the plain path computes them.
+// A row's four packed columns.
+struct Cols {
+  float action, logp_old, adv, ret;
+};
+
+// PACKED: the columns lie side by side at one stride, the first on 16 B (the launcher
+// checks), so one float4 load reads all four; else four loads, each at its own stride.
+template <bool PACKED>
+__device__ __forceinline__ Cols load_cols(const HeadIn& in, int i) {
+  if (PACKED) {
+    const float4 c = *reinterpret_cast<const float4*>(in.action + (long long)i * in.s_action);
+    return {c.x, c.y, c.z, c.w};
+  }
+  return {in.action[(long long)i * in.s_action], in.logp_old[(long long)i * in.s_logp],
+          in.adv[(long long)i * in.s_adv], in.ret[(long long)i * in.s_ret]};
+}
+
+// A row's A logits, padded with zeros to P (the padding is never read as a logit).
+template <int P>
+__device__ __forceinline__ void load_logits(const HeadIn& in, int i, float (&x)[P]) {
+  const float* row = in.logits + (long long)i * in.n_actions;
+#pragma unroll
+  for (int j = 0; j < P; ++j) x[j] = j < in.n_actions ? row[j] : 0.0f;
+}
+
+__host__ __device__ constexpr int log2_of(int p) { return p <= 1 ? 0 : 1 + log2_of(p / 2); }
+
+// One row's forward values, as the plain path computes them; lp[j] for j < A.
+template <int P>
 struct RowFwd {
-  float lp[MAX_ACTIONS];  // log_softmax(logits)
+  float lp[P];  // log_softmax(logits)
   int a;
   float logp, logp_old, adv, ratio, surr1, surr2, min_surr, dual, obj;
 };
 
-__device__ __forceinline__ int lanes(int n_actions) {
-  int p = 1;
-  while (p < n_actions) p <<= 1;
-  return p;
-}
-
-__device__ void row_forward(const HeadIn& in, int i, RowFwd& r) {
+// P = lanes(A) (below): every loop runs over the constant P, so the arrays stay in registers.
+template <int P>
+__device__ __forceinline__ void row_forward(const HeadIn& in, const float (&x)[P], const Cols& c,
+                                            RowFwd<P>& r) {
   const int A = in.n_actions;
-  const float* x = in.logits + (long long)i * A;
   float mx = x[0];
-  for (int j = 1; j < A; ++j) mx = mx > x[j] ? mx : x[j];
-  float e[MAX_ACTIONS];
-  const int P = lanes(A);
+#pragma unroll
+  for (int j = 1; j < P; ++j)
+    if (j < A) mx = mx > x[j] ? mx : x[j];
+  float e[P];
+#pragma unroll
   for (int j = 0; j < P; ++j) e[j] = j < A ? expf(x[j] - mx) : 0.0f;
-  for (int off = P >> 1; off > 0; off >>= 1)
-    for (int l = 0; l < off; ++l) e[l] = e[l] + e[l + off];
+#pragma unroll
+  for (int level = 0; level < log2_of(P); ++level)  // off = P/2, P/4, ..., 1
+#pragma unroll
+    for (int l = 0; l < P / 2; ++l)
+      if (l < (P >> (level + 1))) e[l] = e[l] + e[l + (P >> (level + 1))];
   const float lsum = logf(e[0]);
-  for (int j = 0; j < A; ++j) r.lp[j] = (x[j] - mx) - lsum;
+#pragma unroll
+  for (int j = 0; j < P; ++j) r.lp[j] = (x[j] - mx) - lsum;
 
-  r.a = (int)in.action[(long long)i * in.s_action];  // .long() truncates, as here
-  r.logp = (r.a >= 0 && r.a < A) ? r.lp[r.a] : __int_as_float(0x7fc00000);  // gather
-  r.logp_old = in.logp_old[(long long)i * in.s_logp];
-  r.adv = in.adv[(long long)i * in.s_adv];
+  r.a = (int)c.action;  // .long() truncates, as here
+  r.logp = __int_as_float(0x7fc00000);  // the gather: NaN where the action is out of range
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (j < A && j == r.a) r.logp = r.lp[j];
+  r.logp_old = c.logp_old;
+  r.adv = c.adv;
   r.ratio = expf(r.logp - r.logp_old);
   r.surr1 = r.ratio * r.adv;
   const float clamped = fminf(fmaxf(r.ratio, in.lo), in.hi);
@@ -133,57 +200,79 @@ __device__ void row_forward(const HeadIn& in, int i, RowFwd& r) {
   r.obj = r.adv < 0.0f ? fmaxf(r.min_surr, r.dual) : r.min_surr;
 }
 
-__global__ void __launch_bounds__(THREADS) ppo_loss_fwd(HeadIn in, double* partials,
-                                                        unsigned int* ticket, float* loss,
-                                                        float* metrics) {
+// The loss and its five metrics from the five sums over the rows.
+__device__ void head_out(const HeadIn& in, const double (&sum)[N_METRICS], float* out) {
+  float mean[N_METRICS];
+#pragma unroll
+  for (int k = 0; k < N_METRICS; ++k) mean[k] = (float)sum[k] * in.inv_n;
+  const float policy_loss = -mean[0];
+  const float value_loss = in.value_coef * mean[1];
+  out[0] = (policy_loss + value_loss) - in.entropy_coef * mean[2];
+  out[1] = policy_loss;
+  out[2] = value_loss;
+  out[3] = mean[2];
+  out[4] = mean[3];
+  out[5] = mean[4];
+}
+
+// out = [loss, policy_loss, value_loss, entropy, clip_frac, approx_kl]; one row per thread.
+// A grid of one block finishes in place; a larger one writes each block's five sums to
+// partials, and the last block to finish sums them.
+template <int P, bool PACKED>
+__global__ void __launch_bounds__(THREADS) ppo_loss_fwd(HeadIn in, float* out, double* partials,
+                                                        unsigned int* ticket) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   double s[N_METRICS] = {0.0, 0.0, 0.0, 0.0, 0.0};  // obj, sq err, entropy, clipped, kl
   if (i < in.n) {
-    RowFwd r;
-    row_forward(in, i, r);
-    const float d = in.values[i] - in.ret[(long long)i * in.s_ret];
+    const Cols c = load_cols<PACKED>(in, i);
+    float x[P];
+    load_logits<P>(in, i, x);
+    const float v = in.values[i];
+    RowFwd<P> r;
+    row_forward<P>(in, x, c, r);
+    const float d = v - c.ret;
     float ent = 0.0f;
-    for (int j = 0; j < in.n_actions; ++j) ent = ent + expf(r.lp[j]) * r.lp[j];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j < in.n_actions) ent = ent + expf(r.lp[j]) * r.lp[j];
     s[0] = r.obj;
     s[1] = d * d;
     s[2] = -ent;
     s[3] = (r.ratio < in.lo) | (r.ratio > in.hi) ? 1.0 : 0.0;
     s[4] = r.logp_old - r.logp;
   }
-  for (int k = 0; k < N_METRICS; ++k) {
-    const double b = block_sum(s[k]);
-    if (threadIdx.x == 0) partials[blockIdx.x * N_METRICS + k] = b;
+  block_sums<N_METRICS>(s);
+  if (gridDim.x == 1) {  // one block finishes in place
+    if (threadIdx.x == 0) head_out(in, s, out);
+    return;
   }
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int k = 0; k < N_METRICS; ++k) partials[blockIdx.x * N_METRICS + k] = s[k];
   if (!last_block(ticket)) return;
-
-  float mean[N_METRICS];
-  for (int k = 0; k < N_METRICS; ++k) {
-    double t = 0.0;
-    for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS)
-      t += __ldcg(partials + b * N_METRICS + k);
-    mean[k] = (float)block_sum(t) * in.inv_n;
-  }
-  if (threadIdx.x == 0) {
-    const float policy_loss = -mean[0];
-    const float value_loss = in.value_coef * mean[1];
-    loss[0] = (policy_loss + value_loss) - in.entropy_coef * mean[2];
-    metrics[0] = policy_loss;
-    metrics[1] = value_loss;
-    metrics[2] = mean[2];
-    metrics[3] = mean[3];
-    metrics[4] = mean[4];
-  }
+#pragma unroll
+  for (int k = 0; k < N_METRICS; ++k) s[k] = 0.0;  // every block's sums, at once, in one reduction
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += THREADS)
+#pragma unroll
+    for (int k = 0; k < N_METRICS; ++k) s[k] += __ldcg(partials + b * N_METRICS + k);
+  block_sums<N_METRICS>(s);
+  if (threadIdx.x == 0) head_out(in, s, out);
 }
 
 // The gradient of the loss, times *grad_out, with respect to logits and values; autograd's
-// chain for the plain loss, node by node.
+// chain for the plain loss, node by node. One thread per row (its design predates the
+// forward's; it shares the forward's row helper).
+template <int P>
 __global__ void __launch_bounds__(THREADS) ppo_loss_bwd(HeadIn in, const float* grad_out,
                                                         float* dlogits, float* dvalues) {
   const int i = blockIdx.x * THREADS + threadIdx.x;
   if (i >= in.n) return;
   const float g = *grad_out;
-  RowFwd r;
-  row_forward(in, i, r);
+  float x[P];
+  load_logits<P>(in, i, x);
+  const Cols c = load_cols<false>(in, i);
+  RowFwd<P> r;
+  row_forward<P>(in, x, c, r);
 
   // policy: loss = (-mean(obj) + value) - c * entropy
   const float g_obj = (-g) * in.inv_n;
@@ -200,8 +289,7 @@ __global__ void __launch_bounds__(THREADS) ppo_loss_bwd(HeadIn in, const float* 
   // entropy: -(sum_j exp(lp_j) * lp_j) per row, its mean times -entropy_coef
   const float g_t = -(((-g) * in.entropy_coef) * in.inv_n);
   const int A = in.n_actions;
-  const int P = lanes(A);
-  float p[MAX_ACTIONS], G[MAX_ACTIONS], S[MAX_ACTIONS];
+  float p[P], G[P], S[P];
   for (int j = 0; j < A; ++j) {
     p[j] = expf(r.lp[j]);
     G[j] = g_t * p[j] + (g_t * r.lp[j]) * p[j];  // through mul, then through exp
@@ -214,7 +302,7 @@ __global__ void __launch_bounds__(THREADS) ppo_loss_bwd(HeadIn in, const float* 
   for (int j = 0; j < A; ++j) out[j] = fmaf(-p[j], S[0], G[j]);  // log_softmax's backward
 
   // value: value_coef * mean((v - ret)^2)
-  const float d = in.values[i] - in.ret[(long long)i * in.s_ret];
+  const float d = in.values[i] - c.ret;
   dvalues[i] = ((g * in.value_coef) * in.inv_n) * (2.0f * d);
 }
 
@@ -224,6 +312,7 @@ struct NormTable {
   const float* g[MAX_TENSORS];
   long long numel[MAX_TENSORS];
   int chunk_start[MAX_TENSORS + 1];  // block b works on tensor k where start[k] <= b < start[k+1]
+  unsigned int aligned;               // bit k: g[k] lies on 16 B, so it loads as float4
   int n;
 };
 
@@ -254,24 +343,60 @@ __device__ __forceinline__ int tensor_of(const int* chunk_start, int n) {
   return k;
 }
 
+__device__ __forceinline__ double sq4(const float4 v) {
+  const double x = v.x, y = v.y, z = v.z, w = v.w;
+  return ((x * x + y * y) + z * z) + w * w;
+}
+
+// Each block sums the squares of its chunk in float64 (the float4 loads of an aligned tensor
+// all issued before the sum, then its numel % 4 tail, or an unaligned tensor, one float at a
+// time); the last block sums each tensor's partials: all staged in shared memory by all
+// threads at once, then a warp per tensor, each lane over every 32nd partial, a shuffle tree.
 __global__ void __launch_bounds__(THREADS) grad_sq_norms(NormTable t, float* sq, double* partials,
                                                          unsigned int* ticket) {
   const int k = tensor_of(t.chunk_start, t.n);
   const long long begin = (long long)(blockIdx.x - t.chunk_start[k]) * CHUNK;
-  const long long end = min(begin + CHUNK, t.numel[k]);
-  double acc = 0.0;
-  for (long long e = begin + threadIdx.x; e < end; e += THREADS) {
-    const double x = t.g[k][e];
-    acc += x * x;
+  const int len = (int)min((long long)CHUNK, t.numel[k] - begin);
+  const float* g = t.g[k] + begin;
+  double acc[1] = {0.0};
+  int tail = 0;
+  if ((t.aligned >> k) & 1u) {
+    const float4* g4 = reinterpret_cast<const float4*>(g);
+    const int n4 = len >> 2;
+    float4 v[LOADS];
+#pragma unroll
+    for (int r = 0; r < LOADS; ++r) {
+      const int q = threadIdx.x + r * THREADS;
+      v[r] = q < n4 ? g4[q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+#pragma unroll
+    for (int r = 0; r < LOADS; ++r) acc[0] += sq4(v[r]);
+    tail = n4 << 2;
   }
-  const double b = block_sum(acc);
-  if (threadIdx.x == 0) partials[blockIdx.x] = b;
+  for (int e = tail + threadIdx.x; e < len; e += THREADS) {
+    const double x = g[e];
+    acc[0] += x * x;
+  }
+  block_sums<1>(acc);
+  if (threadIdx.x == 0) partials[blockIdx.x] = acc[0];
   if (!last_block(ticket)) return;
-  if ((int)threadIdx.x < t.n) {
+
+  __shared__ double staged[STAGED];
+  const int chunks = t.chunk_start[t.n];
+#pragma unroll
+  for (int r = 0; r < STAGED / THREADS; ++r) {
+    const int c = threadIdx.x + r * THREADS;
+    if (c < chunks) staged[c] = __ldcg(partials + c);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < t.n; j += WARPS) {
     double total = 0.0;
-    for (int c = t.chunk_start[threadIdx.x]; c < t.chunk_start[threadIdx.x + 1]; ++c)
-      total += __ldcg(partials + c);
-    sq[threadIdx.x] = (float)total;
+    for (int c = t.chunk_start[j] + lane; c < t.chunk_start[j + 1]; c += 32)
+      total += c < STAGED ? staged[c] : __ldcg(partials + c);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) total += __shfl_down_sync(0xffffffffu, total, off);
+    if (lane == 0) sq[j] = (float)total;
   }
 }
 
@@ -318,6 +443,36 @@ inline int chunk_table(const long long* numel, int n, int* chunk_start) {
   return c;
 }
 
+// The padded row width: the next power of two of A, the lanes over which PyTorch's warp
+// softmax sums a row.
+constexpr int lanes(int n_actions) {
+  int p = 1;
+  while (p < n_actions) p <<= 1;
+  return p;
+}
+
+// f(std::integral_constant<int, lanes(n_actions)>{}): the loss kernels' instantiation for
+// 1 <= n_actions <= MAX_ACTIONS.
+template <class F>
+void with_lanes(int n_actions, F&& f) {
+  switch (lanes(n_actions)) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+  }
+}
+
+// Whether the four columns lie side by side at one stride with the first on 16 B: then
+// every row's four are one aligned float4.
+bool columns_packed(const HeadIn& in) {
+  return in.s_logp == in.s_action && in.s_adv == in.s_action && in.s_ret == in.s_action &&
+         in.logp_old == in.action + 1 && in.adv == in.action + 2 && in.ret == in.action + 3 &&
+         reinterpret_cast<uintptr_t>(in.action) % 16 == 0 && in.s_action % 4 == 0;
+}
+
 }  // namespace
 
 // Launchers with a plain C interface (bound with ctypes). Each makes `device`, the card
@@ -325,18 +480,28 @@ inline int chunk_table(const long long* numel, int n, int* chunk_start) {
 // (linked statically) before it launches, and returns the cudaError_t: 0, or the error
 // that refused the device or the launch. Host arrays (the tables) are read here, on the
 // host, and reach the kernel by value.
+// `packed` asks for the float4 column loads; refused (cudaErrorInvalidValue) unless the
+// columns are packed. out: f32[6], the loss and the five metrics; partials (5 float64 a
+// block) and ticket are read only when n > THREADS.
 extern "C" int ppo_loss_fwd_launch(
     const float* logits, const float* values, const float* action, const float* logp_old,
-    const float* adv, const float* ret, double* partials, unsigned int* ticket, float* loss,
-    float* metrics, int n, int n_actions, int s_action, int s_logp, int s_adv, int s_ret,
-    float lo, float hi, float dual_clip, float value_coef, float entropy_coef, float inv_n,
-    int device, cudaStream_t stream) {
+    const float* adv, const float* ret, float* out, double* partials, unsigned int* ticket,
+    int n, int n_actions, int s_action, int s_logp, int s_adv, int s_ret, int packed, float lo,
+    float hi, float dual_clip, float value_coef, float entropy_coef, float inv_n, int device,
+    cudaStream_t stream) {
   if (n <= 0 || n_actions <= 0 || n_actions > MAX_ACTIONS) return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
   const HeadIn in{logits, values, action, logp_old, adv, ret, n, n_actions, s_action, s_logp,
                   s_adv, s_ret, lo, hi, dual_clip, value_coef, entropy_coef, inv_n};
-  ppo_loss_fwd<<<blocks(n), THREADS, 0, stream>>>(in, partials, ticket, loss, metrics);
+  if (packed && !columns_packed(in)) return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  with_lanes(n_actions, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    if (packed)
+      ppo_loss_fwd<P, true><<<blocks(n), THREADS, 0, stream>>>(in, out, partials, ticket);
+    else
+      ppo_loss_fwd<P, false><<<blocks(n), THREADS, 0, stream>>>(in, out, partials, ticket);
+  });
   return (int)cudaGetLastError();
 }
 
@@ -351,13 +516,18 @@ extern "C" int ppo_loss_bwd_launch(
   if (set != cudaSuccess) return (int)set;
   const HeadIn in{logits, values, action, logp_old, adv, ret, n, n_actions, s_action, s_logp,
                   s_adv, s_ret, lo, hi, dual_clip, value_coef, entropy_coef, inv_n};
-  ppo_loss_bwd<<<blocks(n), THREADS, 0, stream>>>(in, grad_out, dlogits, dvalues);
+  with_lanes(n_actions, [&](auto p) {
+    constexpr int P = decltype(p)::value;
+    ppo_loss_bwd<P><<<blocks(n), THREADS, 0, stream>>>(in, grad_out, dlogits, dvalues);
+  });
   return (int)cudaGetLastError();
 }
 
+// aligned[k] != 0: grads[k] lies on 16 bytes and is read with float4 loads (refused if not).
 extern "C" int grad_sq_norms_launch(const float* const* grads, const long long* numels,
-                                    int n_tensors, float* sq, double* partials,
-                                    unsigned int* ticket, int device, cudaStream_t stream) {
+                                    const int* aligned, int n_tensors, float* sq,
+                                    double* partials, unsigned int* ticket, int device,
+                                    cudaStream_t stream) {
   if (n_tensors <= 0 || n_tensors > MAX_TENSORS) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -366,6 +536,9 @@ extern "C" int grad_sq_norms_launch(const float* const* grads, const long long* 
   for (int k = 0; k < n_tensors; ++k) {
     t.g[k] = grads[k];
     t.numel[k] = numels[k];
+    if (!aligned[k]) continue;
+    if (reinterpret_cast<uintptr_t>(grads[k]) % 16 != 0) return (int)cudaErrorInvalidValue;
+    t.aligned |= 1u << k;
   }
   const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start);
   if (chunks <= 0) return (int)cudaErrorInvalidValue;

@@ -18,9 +18,14 @@ a CPU tensor, launches its kernel or raises, and adds one to
 ``kernels.LAUNCHES[name]`` where it launches.
 
 The kernels read the loss's columns (action, logp_old, adv, v_target) where
-they lie, at their stride in the packed minibatch, and the optimizer's
-tables by value, so a step copies nothing to the card. Reductions are
-deterministic (``ppo.cu``). Adam's state stays in ``torch.optim.Adam``:
+they lie in the packed minibatch (``columns_packed``: one float4 a row where
+they sit side by side on 16 bytes, else each at its stride), and the
+optimizer's tables by value, so a step copies nothing to the card.
+Reductions are deterministic (``ppo.cu``). What a wrapper can reuse from one
+call to the next it keeps: the loss's float32 scalars per config and row
+count, the squares' ctypes table while the gradients keep their addresses
+and sizes, and the float64 partials and ticket of the reductions across
+blocks per (device, stream). Adam's state stays in ``torch.optim.Adam``:
 ``clip_adam`` counts each parameter's CPU ``step`` as Adam does and
 computes its bias corrections on the host in double, as Adam does, so
 checkpoints and every reader of ``opt.state`` see what the plain step
@@ -51,14 +56,21 @@ METRICS = ("policy_loss", "value_loss", "entropy", "clip_frac", "approx_kl")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C launchers' parameters in order (``ppo.cu``, ``extern "C"``).
-LOSS_FWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F] * 6 + [_I, _P]
+LOSS_FWD_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P]
 LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P]
-SQ_NORMS_ARGTYPES = [_P, _P, _I, _P, _P, _P, _I, _P]
+SQ_NORMS_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _P]
 CLIP_ADAM_ARGTYPES = [_P] * 7 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
 
 _LIB: ctypes.CDLL | None = None
-# One self-resetting int32 ticket per (device, kernel) for the last-block reductions.
-_TICKETS: dict[tuple[torch.device, str], torch.Tensor] = {}
+# The float64 partials and the self-resetting int32 ticket of the last-block reductions
+# (grad_sq_norms, ppo_loss_fwd past one block) per (device, stream): launches on one stream
+# run in order, so they share them.
+_TICKETS: dict[tuple[torch.device, int | None], tuple[torch.Tensor, torch.Tensor]] = {}
+# The loss's float32 scalars per (clip_eps, dual_clip, value_coef, entropy_coef, n).
+_HEAD_SCALARS: dict[tuple, tuple[float, ...]] = {}
+# grad_sq_norms's launches for the last gradient table: (key, [(ctypes arrays, piece,
+# chunks)]), the key each tensor's (address, numel) and MAX_TENSORS.
+_SQ_TABLE: tuple[tuple, list] | None = None
 
 
 def defines() -> dict[str, str]:
@@ -80,21 +92,31 @@ def _library() -> ctypes.CDLL:
     return _LIB
 
 
-def _ticket(device: torch.device, name: str) -> torch.Tensor:
-    key = (device, name)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _TICKETS[key]
+def _scratch(device: torch.device, chunks: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The partials (at least ``chunks`` float64) and ticket of the
+    last-block reductions on the current stream of ``device`` (off the card,
+    which only the CPU tests' stand-ins reach, one pair per device)."""
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else None
+    key = (device, stream)
+    held = _TICKETS.get(key)
+    if held is None or held[0].numel() < chunks:
+        ticket = held[1] if held else torch.zeros(1, dtype=torch.int32, device=device)
+        held = _TICKETS[key] = (torch.empty(chunks, dtype=torch.float64, device=device), ticket)
+    return held
 
 
 def _launch(fn, args, device: torch.device, what: str) -> None:
     """``fn(*args, device index, stream)``, each tensor of ``args`` passed as
     its address; raises on a nonzero ``cudaError_t``."""
-    # The launcher sets ``device`` in its own CUDA runtime; entering it here too
-    # lets PyTorch's runtime restore its current device afterwards.
-    with torch.cuda.device(device):
-        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
-                 device.index, torch.cuda.current_stream(device).cuda_stream)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if torch.cuda.is_initialized() and torch.cuda.current_device() == device.index:
+        err = fn(*args, device.index, stream)
+    else:
+        # The launcher sets ``device`` in its own CUDA runtime; entering it here
+        # too lets PyTorch's runtime restore its current device afterwards.
+        with torch.cuda.device(device):
+            err = fn(*args, device.index, stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
 
@@ -111,7 +133,7 @@ def _expect(name: str, x: torch.Tensor, shape: tuple, device: torch.device,
         raise ValueError(f"{name} is on {x.device}, the batch on {device}")
     if x.dtype != torch.float32:
         raise TypeError(f"{name} is {x.dtype}, the kernel takes torch.float32")
-    if tuple(x.shape) != shape:
+    if x.shape != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, the kernel takes {shape}")
     if contiguous and not x.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
@@ -125,10 +147,10 @@ def _f32(x: float) -> float:
 
 
 def _head_args(logits, values, action, logp_old, adv, returns, cfg,
-               what: str) -> tuple[list, list, list]:
-    """The loss launchers' arguments before their outputs: the inputs checked
-    (the four columns as 1-D views at any stride) and the scalars as the
-    plain path rounds them."""
+               what: str) -> tuple[list, list, tuple]:
+    """The loss launchers' arguments before their outputs: the inputs'
+    addresses, checked (the four columns as 1-D views at any stride), their
+    sizes and strides, and the scalars as the plain path rounds them."""
     _check_device(logits, what, "algos.ppo.ppo_head_loss_plain")
     dev = logits.device
     if logits.dim() != 2 or not 1 <= logits.shape[1] <= MAX_ACTIONS or logits.shape[0] < 1:
@@ -137,32 +159,46 @@ def _head_args(logits, values, action, logp_old, adv, returns, cfg,
     n, a = logits.shape
     _expect("logits", logits, (n, a), dev)
     _expect("values", values, (n,), dev)
-    columns = {"action": action, "logp_old": logp_old, "adv": adv, "returns": returns}
-    for name, x in columns.items():
+    columns = (action, logp_old, adv, returns)
+    for name, x in zip(("action", "logp_old", "adv", "returns"), columns):
         _expect(name, x, (n,), dev, contiguous=False)
-    ptrs = [logits, values, *columns.values()]
-    strides = [x.stride(0) for x in columns.values()]
-    return ptrs, [n, a, *strides], [
-        _f32(1.0 - cfg.clip_eps), _f32(1.0 + cfg.clip_eps), _f32(cfg.dual_clip),
-        _f32(cfg.value_coef), _f32(cfg.entropy_coef), _f32(1.0 / n)]
+    key = (cfg.clip_eps, cfg.dual_clip, cfg.value_coef, cfg.entropy_coef, n)
+    floats = _HEAD_SCALARS.get(key)
+    if floats is None:
+        floats = _HEAD_SCALARS[key] = (
+            _f32(1.0 - cfg.clip_eps), _f32(1.0 + cfg.clip_eps), _f32(cfg.dual_clip),
+            _f32(cfg.value_coef), _f32(cfg.entropy_coef), _f32(1.0 / n))
+    return ([logits.data_ptr(), values.data_ptr(), *(x.data_ptr() for x in columns)],
+            [n, a, *(x.stride(0) for x in columns)], floats)
+
+
+def columns_packed(action, logp_old, adv, returns) -> bool:
+    """Whether the four columns lie side by side at one stride, the first on
+    16 bytes and the stride a multiple of 4 floats, so that each row's four
+    are one aligned float4 (``mb[:, d:d + 4]`` of a packed minibatch whose
+    row, ``d + 4`` floats, is a multiple of 4: obs 4 and 8)."""
+    s, p = action.stride(0), action.data_ptr()
+    return (s % 4 == 0 and p % 16 == 0
+            and logp_old.stride(0) == s and adv.stride(0) == s and returns.stride(0) == s
+            and logp_old.data_ptr() == p + 4 and adv.data_ptr() == p + 8
+            and returns.data_ptr() == p + 12)
 
 
 def ppo_loss_fwd(logits, values, action, logp_old, adv, returns, cfg):
     """``algos.ppo.ppo_head_loss_plain``'s ``(loss f32[], metrics f32[5])``, in one
-    launch. ``action`` is float32, as the packed minibatch holds it."""
+    launch, both views of one ``f32[6]``. ``action`` is float32, as the packed
+    minibatch holds it."""
     ptrs, ints, floats = _head_args(logits, values, action, logp_old, adv, returns, cfg,
                                     "ppo_loss_fwd")
     dev = logits.device
+    out = torch.empty(1 + len(METRICS), dtype=torch.float32, device=dev)
+    packed = int(columns_packed(action, logp_old, adv, returns))
     n = ints[0]
-    grid = -(-n // THREADS)
-    partials = torch.empty(grid * len(METRICS), dtype=torch.float64, device=dev)
-    loss = torch.empty((), dtype=torch.float32, device=dev)
-    metrics = torch.empty(len(METRICS), dtype=torch.float32, device=dev)
+    partials, ticket = _scratch(dev, -(-n // THREADS) * len(METRICS)) if n > THREADS else (0, 0)
     _launch(_library().ppo_loss_fwd_launch,
-            [*ptrs, partials, _ticket(dev, "ppo_loss_fwd"), loss, metrics, *ints, *floats],
-            dev, "ppo_loss_fwd")
+            [*ptrs, out.data_ptr(), partials, ticket, *ints, packed, *floats], dev, "ppo_loss_fwd")
     kernels.LAUNCHES["ppo_loss_fwd"] += 1
-    return loss, metrics
+    return out[0], out[1:]
 
 
 def ppo_loss_bwd(logits, values, action, logp_old, adv, returns, grad_out, cfg):
@@ -215,35 +251,65 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
-def _check_grads(grads: list[torch.Tensor], what: str) -> torch.device:
+def _check_grads(grads: list[torch.Tensor], what: str) -> tuple[torch.device, tuple]:
+    """The gradients' device, and their ``(address, numel)`` each, in one
+    pass that refuses what the kernels do not take."""
     if not grads:
         raise ValueError(f"{what}: no gradients")
-    if any(g is None for g in grads):
+    if grads[0] is None:
         raise ValueError(f"{what}: a gradient is None")
     _check_device(grads[0], what, "algos.base.clip_adam_plain_")
     dev = grads[0].device
+    key = []
     for i, g in enumerate(grads):
-        _expect(f"grads[{i}]", g, tuple(g.shape), dev)
-        if g.numel() == 0:
+        if g is None:
+            raise ValueError(f"{what}: a gradient is None")
+        if g.device != dev:
+            raise ValueError(f"grads[{i}] is on {g.device}, the batch on {dev}")
+        if g.dtype != torch.float32:
+            raise TypeError(f"grads[{i}] is {g.dtype}, the kernel takes torch.float32")
+        if not g.is_contiguous():
+            raise ValueError(f"grads[{i}] is not contiguous")
+        numel = g.numel()
+        if numel == 0:
             raise ValueError(f"grads[{i}] is empty")
-    return dev
+        key.append((g.data_ptr(), numel))
+    return dev, tuple(key)
+
+
+def _sq_table(key: tuple) -> list:
+    """grad_sq_norms's launches for the gradients ``key`` describes: per
+    piece of ``MAX_TENSORS``, the host arrays of addresses, sizes and
+    alignment flags (1 where the address lies on 16 bytes: float4 loads),
+    the piece, and its chunks (blocks). Built again when any address or size
+    changed, so a stale table never reaches a launch."""
+    global _SQ_TABLE
+    key = (MAX_TENSORS, key)
+    if _SQ_TABLE is None or _SQ_TABLE[0] != key:
+        launches = []
+        for piece in _pieces(len(key[1])):
+            part = key[1][piece]
+            arrays = ((ctypes.c_void_p * len(part))(*(p for p, _ in part)),
+                      (ctypes.c_longlong * len(part))(*(n for _, n in part)),
+                      (ctypes.c_int * len(part))(*(int(p % 16 == 0) for p, _ in part)))
+            launches.append((arrays, piece, sum(_chunks(n) for _, n in part)))
+        _SQ_TABLE = (key, launches)
+    return _SQ_TABLE[1]
 
 
 def grad_sq_norms(grads: list[torch.Tensor]) -> torch.Tensor:
     """f32[len(grads)]: each gradient's squared norm (what
     ``torch._foreach_norm`` gives the clip, squared), summed in float64 in a
     fixed order; one launch per ``MAX_TENSORS`` tensors."""
-    dev = _check_grads(grads, "grad_sq_norms")
+    dev, key = _check_grads(grads, "grad_sq_norms")
     sq = torch.empty(len(grads), dtype=torch.float32, device=dev)
     lib = _library()
-    for piece in _pieces(len(grads)):
-        part = grads[piece]
-        numels = [g.numel() for g in part]
-        partials = torch.empty(sum(map(_chunks, numels)), dtype=torch.float64, device=dev)
-        arrays = (_ptrs(part), (ctypes.c_longlong * len(part))(*numels))
+    launches = _sq_table(key)
+    partials, ticket = _scratch(dev, max(chunks for _, _, chunks in launches))
+    for arrays, piece, _ in launches:
         _launch(lib.grad_sq_norms_launch,
-                [ctypes.addressof(arrays[0]), ctypes.addressof(arrays[1]), len(part),
-                 sq.data_ptr() + 4 * piece.start, partials, _ticket(dev, "grad_sq_norms")],
+                [*map(ctypes.addressof, arrays), piece.stop - piece.start,
+                 sq.data_ptr() + 4 * piece.start, partials, ticket],
                 dev, "grad_sq_norms")
         kernels.LAUNCHES["grad_sq_norms"] += 1
     return sq
@@ -271,7 +337,7 @@ def clip_adam(opt: torch.optim.Adam, grads: list[torch.Tensor], sq: torch.Tensor
     clip scale, and Adam's step of ``opt`` (one param group, as
     ``algos.base.adam`` builds it) with the scaled ``grads``, in place; one
     launch per ``MAX_TENSORS`` tensors."""
-    dev = _check_grads(grads, "clip_adam")
+    dev, _ = _check_grads(grads, "clip_adam")
     if len(opt.param_groups) != 1:
         raise ValueError(f"clip_adam steps one param group, not {len(opt.param_groups)}")
     group = opt.param_groups[0]

@@ -477,7 +477,8 @@ class FakeLib:
     def __init__(self):
         self.sq, self.adam = [], []
 
-    def grad_sq_norms_launch(self, grads, numels, k, sq, partials, ticket, device, stream):
+    def grad_sq_norms_launch(self, grads, numels, aligned, k, sq, partials, ticket, device,
+                             stream):
         self.sq.append(dict(grads=list((ctypes.c_void_p * k).from_address(grads)),
                             numels=list((ctypes.c_longlong * k).from_address(numels)),
                             sq=sq, partials=partials))
