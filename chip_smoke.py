@@ -54,7 +54,9 @@ only if all of them pass.
      learn-step counts, finite metrics, that every online net moved and
      stayed on the card, each Adam step count against its cadence (TD3's
      actor on learn steps 0, 2, 4, ...; DQN's target syncs = episodes // 4)
-     and that the restored state equals the trained one.
+     and that the restore brings back every field but the replay as it
+     was saved, with the fresh, empty replay of the example it restores
+     into, as the JAX package's restore does (no checkpoint holds a replay).
   7. PER and FlappyBird: B=8192 FlappyBird states, made on the CPU by a
      fixed-seed random-action rollout with autoreset, stepped once on the
      card and once on the CPU with the same actions and respawn draws
@@ -194,7 +196,8 @@ only if all of them pass.
      changed actions into other transitions (``PERF.md``). Each sharded
      iteration is held against the unsharded one on the card under
      ``_dist_check``'s rules (the env batch, episodes, noise stream and
-     replay transitions exact; every param entry to 1e-5, the bf16 bench
+     replay transitions exact, the replay, which no checkpoint holds, read
+     from rank 0's state; every param entry to 1e-5, the bf16 bench
      config's to 2·lr·steps·2^-8; the metrics to rtol 1e-5, the bench
      config's to 2^-8). (c) The checkpoint saved under (b)'s
      trunk split holds whole tensors and restores into a fresh state of the
@@ -220,14 +223,24 @@ only if all of them pass.
      agree to 1e-6 and at most 8 envs may differ more or in a flag (phase 1's
      tie rule); the card reads 0 everywhere. (c) ms per call of each kernel
      and of its plain version (CUDA events over 100 calls after a warm-up),
-     the device's time per kernel and kernels per call (traces), and the
+     at those batches and at one env (the latency of one env's chain), the
+     step on a fresh reset's states (every lander in the air) and on those
+     of a 90-step random-action rollout (some on the ground, as on the main
+     path; the kernels line takes these), the
+     device's time per kernel and kernels per call (traces; a trace that
+     does not hold one kernel a call is refused and taken again, at most
+     five times, after which the device time is not measured), and the
      bound: the bytes the function must read and write (without wind the
      step reads no wind index and no leg contact) over 3.35 TB/s or the
      operations over 67 TFLOP/s, the larger. (d) The CUDA launches of one lander
      ``VecEnv.step`` at 8192 envs under ``utils.profiling.trace``: at most 60.
      (e) With nvcc missing, and with an nvcc that refuses the source (a
      stand-in script), a lander step on the card raises and launches
-     nothing: no fallback to the plain path.
+     nothing: no fallback to the plain path. (f) The kernels' own sin and
+     cos (``lib_sincosf``: the library's algorithm with its Payne-Hanek
+     words in registers, so ``lander_step`` keeps no stack) against the CUDA
+     library's ``sinf`` and ``cosf`` on every one of the 2^32 float32
+     inputs: equal to the bit (two NaNs agree).
   Phases 2, 3, 11 and 13 run with the kernels' launch counts set to 0 just
   before them, and fail unless both lander kernels launched in them; phases
   2 and 3 (``PPOTrainer``) also unless each of PPO's four update kernels
@@ -278,10 +291,15 @@ only if all of them pass.
      (``_dist_check``). (d) ms per call of each kernel, its plain version
      and, for ``grad_sq_norms`` and ``clip_adam``, the library call
      (``torch._foreach_norm``; the clip and ``torch.optim.Adam(fused=True)``)
-     at both shapes, the device times from traces, and the bound; each
-     kernel's registers, stack and spills from ``nvcc -Xptxas -v``, none of
-     either for ``ppo_loss_fwd`` (every instantiation) and
-     ``grad_sq_norms``. (e) The
+     at both shapes, the device times from traces (refused and taken again,
+     at most five times, until the trace holds exactly one kernel a call),
+     and the bound;
+     each kernel's registers, stack and spills from ``nvcc -Xptxas -v`` on
+     both sources, none of either for ``ppo_loss_fwd`` (every
+     instantiation), ``grad_sq_norms``, ``clip_adam``, ``lander_step`` (all
+     four instantiations) and ``lander_reset`` (both), and the lander
+     kernels' local loads and stores in their SASS (``cuobjdump -sass``,
+     where the toolkit has it). (e) The
      CUDA launches of one grad step (``PPOTrainer._minibatch_step``) on the
      kernels and on the plain versions, at both shapes, and the host time of
      its parts (forward, head, backward, clip with Adam) by the host clock,
@@ -895,6 +913,28 @@ def _adam_counts(opt) -> set[int]:
     return {int(s["step"]) for s in opt.state.values()}
 
 
+def _check_restored(name: str, ts, restored, example, path: str) -> dict:
+    """A checkpoint restore as the JAX package makes one: every tensor of
+    the state but the replay equal to the saved state's, the replay the
+    fresh example's (empty) and none in the file."""
+    got, want = _state_tensors(restored), _state_tensors(ts)
+    got, want = ({k: v for k, v in d.items() if not k.startswith("ts.replay")}
+                 for d in (got, want))
+    if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
+        raise AssertionError(f"{name}: the restored state differs from the trained one")
+    if restored.env_steps != ts.env_steps:
+        raise AssertionError(f"{name}: restored env_steps differ")
+    if not hasattr(ts, "replay"):
+        return {"checkpoint_restored": True}
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    if saved["replay"] is not None or restored.replay is not example.replay \
+            or restored.replay.size != 0 or ts.replay.size == 0:
+        raise AssertionError(f"{name}: the restore did not keep the fresh replay "
+                             f"(saved {ts.replay.size} rows, restored {restored.replay.size})")
+    return {"checkpoint_restored": True, "replay_rows_saved": ts.replay.size,
+            "replay_rows_restored": restored.replay.size}
+
+
 def phase_workloads(device: torch.device, names=WORKLOADS,
                     timed_iters: int = WORKLOAD_TIMED_ITERS, episodes: int = 5,
                     label: str = "phase 6 workload") -> list[dict]:
@@ -946,7 +986,9 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
             mean_reward = loop.test(ts, episodes=episodes)
             test_s = time.perf_counter() - t0
             path = save_checkpoint(loop.ckpt_path, ts)
-            restored = restore_checkpoint(path, trainer.init(1))
+            example = trainer.init(1)
+            restored = restore_checkpoint(path, example)
+            restore = _check_restored(name, ts, restored, example, path)
 
         iters = timed_iters + 1
         if ppo:
@@ -1009,12 +1051,7 @@ def phase_workloads(device: torch.device, names=WORKLOADS,
                 if syncs != episodes_done // cfg.target_update_freq:
                     raise AssertionError(f"{name}: {syncs} target syncs after {episodes_done} episodes")
                 result.update(episodes=episodes_done, target_syncs=syncs, updates=updates)
-        got, want = _state_tensors(restored), _state_tensors(ts)
-        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
-            raise AssertionError(f"{name}: the restored state differs from the trained one")
-        if restored.env_steps != ts.env_steps:
-            raise AssertionError(f"{name}: restored env_steps differ")
-        result["checkpoint_restored"] = True
+        result.update(restore)
         log(f"{label}: " + json.dumps(result))
         results.append(result)
     return results
@@ -1606,7 +1643,9 @@ def phase_rnn_workloads(device: torch.device, names=RECURRENT,
             mean_reward = loop.test(ts, episodes=episodes)
             test_s = time.perf_counter() - t0
             path = save_checkpoint(loop.ckpt_path, ts)
-            restored = restore_checkpoint(path, trainer.init(1))
+            example = trainer.init(1)
+            restored = restore_checkpoint(path, example)
+            restore = _check_restored(name, ts, restored, example, path)
 
         iters = timed_iters + 1
         last_done = out.ep_done[-1]
@@ -1650,10 +1689,7 @@ def phase_rnn_workloads(device: torch.device, names=RECURRENT,
         moved = [n for n, v in initial.items() if not torch.equal(state[n], v)]
         if len(moved) != len(initial):
             raise AssertionError(f"{name}: {sorted(set(initial) - set(moved))} did not move")
-        got, want = _state_tensors(restored), _state_tensors(ts)
-        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
-            raise AssertionError(f"{name}: the restored state differs from the trained one")
-        result.update(adam_steps=want_steps, checkpoint_restored=True)
+        result.update(adam_steps=want_steps, **restore)
         log("phase 11 recurrent workload: " + json.dumps(result))
         results.append(result)
     return results
@@ -1994,7 +2030,9 @@ def phase_mhc_workloads(device: torch.device, names=MHC,
             mean_reward = loop.test(ts, episodes=episodes)
             test_s = time.perf_counter() - t0
             path = save_checkpoint(loop.ckpt_path, ts)
-            restored = restore_checkpoint(path, trainer.init(1))
+            example = trainer.init(1)
+            restored = restore_checkpoint(path, example)
+            restore = _check_restored(name, ts, restored, example, path)
 
         iters = timed_iters + 1
         result = {
@@ -2032,11 +2070,7 @@ def phase_mhc_workloads(device: torch.device, names=MHC,
         still = [n for n, v in initial.items() if n not in frozen and torch.equal(state[n], v)]
         if still:
             raise AssertionError(f"{name}: {still} did not move")
-        got, want = _state_tensors(restored), _state_tensors(ts)
-        if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want):
-            raise AssertionError(f"{name}: the restored state differs from the trained one")
-        result.update(adam_steps=want_steps, rnd_target_tensors_equal=len(frozen),
-                      checkpoint_restored=True)
+        result.update(adam_steps=want_steps, rnd_target_tensors_equal=len(frozen), **restore)
         log("phase 13 mhc workload: " + json.dumps(result))
         results.append(result)
     return results
@@ -2409,6 +2443,8 @@ def _shared_card_world(rank: int, world: int, workdir: str, cases=DIST_CASES,
                 "env_steps": ts.env_steps,
                 "metrics": {k: float(v) for k, v in o.metrics.items()},
                 "ep_return": o.ep_return.cpu(), "ep_done": o.ep_done.cpu()}
+        if rank == 0 and hasattr(ts, "replay"):  # replicated, and not in the checkpoint
+            case["replay"] = {k: v for k, v in _cpu_flat(ts).items() if k.startswith("ts.replay")}
         if n_model > 1:  # (c): a checkpoint under the trunk split, restored
             fresh = _dist_trainer(name, mesh.device, mesh)
             restored = restore_checkpoint(path, fresh.init(1), mesh)
@@ -2541,7 +2577,7 @@ def phase_distributed(device: torch.device, cases=DIST_CASES, one_case: str = "b
         for name, n_data, n_model in cases:
             ref, case = refs[name], two[0]["cases"][name]
             got = flat_state(torch.load(os.path.join(tmp, f"{name}.pt"), map_location="cpu",
-                                        weights_only=True))
+                                        weights_only=True)) | case.get("replay", {})
             result = {
                 "mesh": case["mesh"], "device": case["device"], "adam_steps": ref["adam_steps"],
                 "wall_s": {"unsharded": ref["wall_s"],
@@ -2629,6 +2665,8 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
 KERNEL_STEPS = 200
 KERNEL_ATOL = 1e-6
 KERNEL_TIMED_CALLS = 100
+KERNEL_LATENCY_ENVS = 1  # one env: the lander kernels' time is its chain's latency
+TRACE_TRIES = 5  # traces taken until one holds exactly one kernel a call
 VECENV_STEP_MAX_LAUNCHES = 60
 # Float32 operations per env, counted in lunarlander.cu (discrete, no wind; each add,
 # multiply, compare, select, division, square root and sin/cos/tanh as one): the
@@ -2685,6 +2723,22 @@ def _traced_kernels(device: torch.device, fn, calls: int) -> tuple[float, float]
                 fn()
     stats = kernel_stats(prof)
     return stats["kernels"] / calls, stats["kernel_ms"] / max(stats["kernels"], 1)
+
+
+def _clean_trace(device: torch.device, fn, calls: int, what: str) -> tuple[float, float | None]:
+    """``_traced_kernels`` of a one-kernel call, taken again until the trace
+    holds exactly one kernel a call: a trace that drops events reads a
+    device time that no kernel took, so it is refused. After
+    ``TRACE_TRIES`` refused traces the device time is None (not measured)."""
+    seen = []
+    for _ in range(TRACE_TRIES):
+        launches, per_kernel = _traced_kernels(device, fn, calls)
+        if launches == 1.0:
+            return launches, per_kernel
+        seen.append(launches)
+    log(f"{what}: no clean trace in {TRACE_TRIES} (kernels a call {seen}): device time not "
+        f"measured")
+    return seen[-1], None
 
 
 def _nbytes(*tensors) -> int:
@@ -2772,13 +2826,21 @@ def phase_kernels(device: torch.device, envs=None, steps: int = KERNEL_STEPS,
     envs = envs or kernel_envs()
     out = {**_check_kernels(device, envs, steps), "time": [], "vecenv_step": None,
            "no_fallback": None}
-    # (c) times: per call (CUDA events), and the device's kernel time per call (trace)
-    for num in envs:
+    # (c) times: per call (CUDA events), and the device's kernel time per call (trace); the
+    # step on a fresh reset's states (every lander in the air) and on those a random-action
+    # rollout reaches (some on the ground, as on the main path: the solve's work differs)
+    for num in (KERNEL_LATENCY_ENVS, *envs):
         env = LunarLander()
         params = env.default_params()
         noise = Noise(device, 5)
         draws = env.reset_draws(noise, num)
         state, _ = lander_reset(params, draws)
+        venv = VecEnv(env, params, num)
+        vs = venv.reset(noise)
+        gen = torch.Generator().manual_seed(2)
+        for _ in range(PHYS_WARM_STEPS):
+            vs, _ = venv.step(vs, _random_actions(env, num, gen).to(device), noise)
+        states = {"reset": state, "rollout": vs.env_state}
         a = torch.randint(0, 4, (num,), dtype=torch.int32, device=device)
         disp = env.step_draws(noise, num)
         k = lander_step(params, state, a, disp)
@@ -2792,20 +2854,22 @@ def phase_kernels(device: torch.device, envs=None, steps: int = KERNEL_STEPS,
                              k.obs, k.reward, k.terminated, k.truncated)
         ks, ko = lander_reset(params, draws)
         reset_bytes = _nbytes(*draws, *ks, ko)
-        for name, kernel, plain, nbytes, ops in (
-            ("lunarlander_step", lambda: lander_step(params, state, a, disp),
-             lambda: env.step_from_plain(params, state, a, disp), step_bytes,
-             STEP_OPS_PER_ENV * num),
-            ("lunarlander_reset", lambda: lander_reset(params, draws),
-             lambda: env.reset_from_plain(params, draws), reset_bytes, RESET_OPS_PER_ENV * num),
-        ):
+        cases = [("lunarlander_step", label, lambda s=s: lander_step(params, s, a, disp),
+                  lambda s=s: env.step_from_plain(params, s, a, disp), step_bytes,
+                  STEP_OPS_PER_ENV * num, float(s.leg_contact.any(dim=1).float().mean()))
+                 for label, s in states.items()]
+        cases.append(("lunarlander_reset", "draws", lambda: lander_reset(params, draws),
+                      lambda: env.reset_from_plain(params, draws), reset_bytes,
+                      RESET_OPS_PER_ENV * num, 0.0))
+        for name, label, kernel, plain, nbytes, ops, touching in cases:
             bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
-            r = {"kernel": name, "envs": num, "ms": _per_call_ms(device, kernel, timed_calls),
+            r = {"kernel": name, "envs": num, "state": label, "touching": touching,
+                 "ms": _per_call_ms(device, kernel, timed_calls),
                  "plain_ms": _per_call_ms(device, plain, timed_calls),
                  "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
             if device.type == "cuda":  # the device's own time, from traces
-                launches, per_kernel = _traced_kernels(device, kernel, timed_calls)
+                launches, per_kernel = _clean_trace(device, kernel, timed_calls, name)
                 plain_launches, plain_per_kernel = _traced_kernels(device, plain, 5)
                 r.update(device_ms=per_kernel, traced_launches_per_call=launches,
                          plain_device_ms=plain_per_kernel * plain_launches,
@@ -2834,7 +2898,24 @@ def phase_kernels(device: torch.device, envs=None, steps: int = KERNEL_STEPS,
             raise AssertionError(f"one lander VecEnv.step launched {launches} kernels")
         out["no_fallback"] = _no_fallback(device)
         log("phase 18 compiler failing: " + json.dumps(out["no_fallback"]))
+        out["trig"] = _trig_check(device)
     return out
+
+
+def _trig_check(device: torch.device) -> dict:
+    """Phase 18 (f): the kernels' own sin and cos (``lib_sincosf``, which
+    keep Payne-Hanek's words in registers) against the CUDA math library's
+    ``sinf`` and ``cosf`` on all 2^32 float32 inputs: not one may differ."""
+    from gymrl_tpu_torch.kernels.lunarlander import trig_mismatches
+
+    t0 = time.perf_counter()
+    sin_bad, cos_bad = trig_mismatches(device)
+    r = {"inputs": 2 ** 32, "sin_differ": sin_bad, "cos_differ": cos_bad,
+         "s": time.perf_counter() - t0}
+    log("phase 18 sin and cos against the library: " + json.dumps(r))
+    if sin_bad or cos_bad:
+        raise AssertionError(f"the kernels' sin / cos differ from sinf / cosf: {r}")
+    return r
 
 
 def _no_fallback(device: torch.device) -> dict:
@@ -3284,6 +3365,62 @@ def _adam_case(trainer, ts, packed, perms, norm: float) -> dict:
             "equal_to_the_bit": bool(equal)}
 
 
+def _views(offsets_sizes, gen: torch.Generator, device: torch.device) -> list[torch.Tensor]:
+    """Views of one new buffer of normals, view ``i`` ``offset`` floats past
+    a multiple of 4 floats (16 bytes) for each ``(offset, numel)``."""
+    starts = [4 * sum(-(-(o + n) // 4) for o, n in offsets_sizes[:i]) + offset
+              for i, (offset, n) in enumerate(offsets_sizes)]
+    buffer = torch.randn(starts[-1] + offsets_sizes[-1][1], generator=gen, device=device)
+    return [buffer[s:s + n] for s, (_, n) in zip(starts, offsets_sizes)]
+
+
+def _adam_views_case(device: torch.device, foreach: bool, norm: float) -> dict:
+    """Phase 19 (b), the misaligned table: ``clip_adam_`` against
+    ``clip_adam_plain_`` for ``ADAM_STEPS`` steps on parameters, gradients
+    and both moments that are views of four buffers at the offsets of
+    ``SQ_NORMS_VIEWS`` (off 16 bytes, so the kernel takes them one float at
+    a time, or on it with a ``numel % 4`` tail), the gradients scaled to the
+    global norm ``norm``."""
+    from gymrl_tpu_torch.algos.base import adam, clip_adam_, clip_adam_plain_
+    from gymrl_tpu_torch.kernels.ppo import aligned_flags
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    p0 = _views(SQ_NORMS_VIEWS, gen, device)
+    grads = []
+    for _ in range(ADAM_STEPS):
+        g = _views(SQ_NORMS_VIEWS, gen, device)
+        total = torch.linalg.vector_norm(torch.stack([x.double().norm() for x in g]))
+        grads.append([(x.double() * (norm / total)).float() for x in g])
+    runs = {}
+    for route, step in (("kernel", clip_adam_), ("plain", clip_adam_plain_)):
+        params = [torch.nn.Parameter(v) for v in _views(SQ_NORMS_VIEWS, gen, device)]
+        with torch.no_grad():
+            for p, x in zip(params, p0):
+                p.copy_(x)
+        opt = adam(params, 3e-4, 1e-5, foreach=foreach)
+        m, v = _views(SQ_NORMS_VIEWS, gen, device), _views(SQ_NORMS_VIEWS, gen, device)
+        for p, a, b in zip(params, m, v):
+            opt.state[p]["exp_avg"] = a.zero_()
+            opt.state[p]["exp_avg_sq"] = b.zero_()
+        for g in grads:
+            gs = _views(SQ_NORMS_VIEWS, gen, device)
+            for p, x, y in zip(params, gs, g):
+                p.grad = x.copy_(y)
+            step(opt, gs, 0.5)
+        runs[route] = (params, opt, m, v, gs)
+    (pk, ok, mk, vk, gk), (pp, _, mp, vp, _) = runs["kernel"], runs["plain"]
+    flags = aligned_flags(pk, gk, mk, vk)
+    err = {"params": max(float((a - b).detach().abs().max()) for a, b in zip(pk, pp))}
+    for label, a, b in (("exp_avg", mk, mp), ("exp_avg_sq", vk, vp)):
+        err[label] = max(float((x - y).abs().max()) / (float(y.abs().max()) or 1.0)
+                         for x, y in zip(a, b))
+    equal = all(torch.equal(a, b) for a, b in zip(pk + mk + vk, pp + mp + vp))
+    return {"case": "views", "foreach": foreach, "grad_norm": norm, "steps": ADAM_STEPS,
+            "aligned": flags, "params_abs_err": err["params"],
+            "exp_avg_of_scale": err["exp_avg"], "exp_avg_sq_of_scale": err["exp_avg_sq"],
+            "norm_rel_err": 0.0, "equal_to_the_bit": bool(equal)}
+
+
 def _sq_rel_errs(got: torch.Tensor, grads: list[torch.Tensor]) -> dict:
     """Each tensor's square from ``grad_sq_norms`` (``got``) against its
     float64 sum, relative to itself, and against the plain square of
@@ -3318,12 +3455,8 @@ def _sq_norms_case(trainer, ts, packed, perms, name: str) -> dict:
     gen = torch.Generator(device=device).manual_seed(19)
     table = [torch.randn(n, generator=gen, device=device) * 2.0 ** (3 * (i % 7) - 9)
              for i, n in enumerate(SQ_NORMS_TABLE)]
-    # each view starts `offset` floats past a multiple of 4 floats (16 bytes) of one buffer
-    starts = [4 * sum(-(-(o + n) // 4) for o, n in SQ_NORMS_VIEWS[:i]) + offset
-              for i, (offset, n) in enumerate(SQ_NORMS_VIEWS)]
-    buffer = torch.randn(starts[-1] + SQ_NORMS_VIEWS[-1][1], generator=gen, device=device)
-    views = [buffer[s:s + n].mul_(2.0 ** (3 * (i % 7) - 9))
-             for i, (s, (_, n)) in enumerate(zip(starts, SQ_NORMS_VIEWS))]
+    views = [v.mul_(2.0 ** (3 * (i % 7) - 9))
+             for i, v in enumerate(_views(SQ_NORMS_VIEWS, gen, device))]
     r = {"case": name, "views_off_16_bytes": sum(v.data_ptr() % 16 != 0 for v in views)}
     if r["views_off_16_bytes"] != sum(o != 0 for o, _ in SQ_NORMS_VIEWS):
         raise AssertionError(f"phase 19b: {r['views_off_16_bytes']} views off 16 bytes")
@@ -3417,7 +3550,7 @@ def _update_times(device: torch.device, name: str, calls: int) -> list[dict]:
     out = []
     for kernel, fn, plain, library, nbytes, ops in cases:
         bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
-        launches, per_kernel = _traced_kernels(device, fn, calls)
+        launches, per_kernel = _clean_trace(device, fn, calls, f"{kernel} at {name}")
         plain_launches, plain_per_kernel = _traced_kernels(device, plain, 5)
         r = {"kernel": kernel, "case": name, "rows": n, "params": n_params,
              "ms": _per_call_ms(device, fn, calls), "plain_ms": _per_call_ms(device, plain, calls),
@@ -3523,38 +3656,71 @@ def _update_checks(device: torch.device) -> dict:
             if bad:
                 raise AssertionError(f"phase 19b {name} {label}: {bad} > {ADAM_TOL}")
         del trainer, ts
+    for foreach in (True, False):  # the misaligned table, both of Adam's modes
+        for label, norm in ADAM_NORMS.items():
+            r = _adam_views_case(device, foreach, norm)
+            r.update(clip=label)
+            log("phase 19b clip + Adam: " + json.dumps(r))
+            out["adam"].append(r)
+            bad = {k: r[k] for k in ("params_abs_err", "exp_avg_of_scale", "exp_avg_sq_of_scale")
+                   if not r[k] <= ADAM_TOL}
+            if bad or r["aligned"] != [int(o == 0) for o, _ in SQ_NORMS_VIEWS]:
+                raise AssertionError(f"phase 19b views {label} foreach={foreach}: {bad} > "
+                                     f"{ADAM_TOL}, aligned {r['aligned']}")
     return out
 
 
-def _ptxas_report() -> dict:
-    """Phase 19 (d): each kernel of ``ppo.cu`` as ``nvcc -Xptxas -v`` reports
-    it under the build's flags and defines: registers, stack frame and spill
-    bytes. Fails unless every ``ppo_loss_fwd`` instantiation and
-    ``grad_sq_norms`` keep to registers (no stack, no spills)."""
+# Each source's kernels as ptxas names them (mangled), and how the report names them.
+PTXAS_NAMES = {
+    "ppo": ((r"ppo_loss_fwdILi(\d+)ELb([01])E", "ppo_loss_fwd<{}, {}>"),
+            (r"ppo_loss_bwdILi(\d+)E", "ppo_loss_bwd<{}>"), (r"grad_sq_norms", "grad_sq_norms"),
+            (r"clip_adam", "clip_adam")),
+    "lunarlander": ((r"lander_stepILb([01])ELb([01])E", "lander_step<{}, {}>"),
+                    (r"lander_resetILb([01])E", "lander_reset<{}>")),
+}
+# Kernels that must keep to registers (no stack frame, no spills), by the report's prefix,
+# and how many instantiations each has.
+PTXAS_HELD = {"ppo_loss_fwd": 12, "grad_sq_norms": 1, "clip_adam": 1, "lander_step": 4,
+              "lander_reset": 2}
+
+
+def _kernel_name(mangled: str, patterns) -> str | None:
+    import re
+
+    for pat, fmt in patterns:
+        m = re.search(pat, mangled)
+        if m:
+            return fmt.format(*m.groups())
+    return None
+
+
+def _ptxas(source: str, defines: dict, patterns, sass: bool = False) -> dict:
+    """``nvcc -Xptxas -v`` on ``source`` under the build's flags and
+    ``defines``: each kernel's registers, stack frame and spill bytes; with
+    ``sass``, also its SASS instructions and local loads and stores
+    (``cuobjdump -sass``, where the toolkit has it)."""
     import re
     import subprocess
 
     from gymrl_tpu_torch.kernels import build
-    from gymrl_tpu_torch.kernels import ppo as kp
 
+    nvcc = build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
-        done = subprocess.run([build.find_nvcc(), *build.FLAGS, *build.define_flags(kp.defines()),
-                               "-Xptxas", "-v", "-o", os.path.join(tmp, "ppo.so"), kp.SOURCE],
-                              capture_output=True, text=True)
-    if done.returncode != 0:
-        raise AssertionError(f"nvcc -Xptxas -v failed on ppo.cu:\n{done.stderr}")
-    names = ((r"ppo_loss_fwdILi(\d+)ELb([01])E", "ppo_loss_fwd<{}, {}>"),
-             (r"ppo_loss_bwdILi(\d+)E", "ppo_loss_bwd<{}>"), (r"grad_sq_norms", "grad_sq_norms"),
-             (r"clip_adam", "clip_adam"))
+        lib = os.path.join(tmp, "kernels.so")
+        done = subprocess.run([nvcc, *build.FLAGS, *build.define_flags(defines), "-Xptxas", "-v",
+                               "-o", lib, source], capture_output=True, text=True)
+        if done.returncode != 0:
+            raise AssertionError(f"nvcc -Xptxas -v failed on {source}:\n{done.stderr}")
+        dump = None
+        cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+        if sass and os.access(cuobjdump, os.X_OK):
+            dump = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True)
     report, name = {}, None
     for line in done.stderr.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
         if m:
-            found = [(pat, fmt) for pat, fmt in names if re.search(pat, m.group(1))]
-            name = None
-            if found:
-                pat, fmt = found[0]
-                name = fmt.format(*re.search(pat, m.group(1)).groups())
+            name = _kernel_name(m.group(1), patterns)
+            if name is not None:
                 report.setdefault(name, {})
         if name is None:
             continue
@@ -3565,13 +3731,41 @@ def _ptxas_report() -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             report[name]["registers"] = int(m[1])
+    if dump is not None and dump.returncode == 0:
+        name = None
+        for line in dump.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                name = _kernel_name(m.group(1), patterns)
+                if name in report:
+                    report[name].update(sass_instructions=0, sass_ldl=0, sass_stl=0)
+                continue
+            if name in report and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+                rec = report[name]
+                rec["sass_instructions"] += 1
+                rec["sass_ldl"] += bool(re.search(r"\bLDL\b", line))
+                rec["sass_stl"] += bool(re.search(r"\bSTL\b", line))
+    return report
+
+
+def _ptxas_report() -> dict:
+    """Phase 19 (d): every kernel of ``ppo.cu`` and ``lunarlander.cu`` as
+    ``nvcc -Xptxas -v`` reports it under the build's flags and defines
+    (``_ptxas``). Fails unless every kernel of ``PTXAS_HELD`` keeps to
+    registers (no stack, no spills)."""
+    from gymrl_tpu_torch.kernels import lunarlander as kl
+    from gymrl_tpu_torch.kernels import ppo as kp
+
+    report = {**_ptxas(kp.SOURCE, kp.defines(), PTXAS_NAMES["ppo"]),
+              **_ptxas(kl.SOURCE, kl.defines(), PTXAS_NAMES["lunarlander"], sass=True)}
     log("phase 19d ptxas: " + json.dumps(report))
-    held = [k for k in report if k.startswith(("ppo_loss_fwd", "grad_sq_norms"))]
-    if len(held) != 13:  # 6 widths x 2 column layouts, and grad_sq_norms
-        raise AssertionError(f"ptxas reported {held}")
-    bad = {k: report[k] for k in held
-           if report[k].get("stack", 1) or report[k].get("spill_stores", 1)
-           or report[k].get("spill_loads", 1)}
+    for prefix, count in PTXAS_HELD.items():
+        held = [k for k in report if k.split("<")[0] == prefix]
+        if len(held) != count:
+            raise AssertionError(f"ptxas reported {held} for {prefix}")
+    bad = {k: report[k] for k in report if k.split("<")[0] in PTXAS_HELD
+           and (report[k].get("stack", 1) or report[k].get("spill_stores", 1)
+                or report[k].get("spill_loads", 1))}
     if bad:
         raise AssertionError(f"phase 19d: stack or spills in {bad}")
     return report
@@ -3596,7 +3790,8 @@ def kernel_line(counts: dict, phase18: dict, phase19: dict) -> dict:
     config), its largest error against the plain path, and its times and
     bound at the bench config's shapes."""
     widest = max(r["envs"] for r in phase18["time"])
-    times = {r["kernel"]: r for r in phase18["time"] if r["envs"] == widest}
+    times = {r["kernel"]: r for r in phase18["time"]
+             if r["envs"] == widest and r["state"] != "reset"}
     times.update({r["kernel"]: r for r in phase19["time"] if r["case"] == "bench"})
     head = phase19["head"].values()
     errs = {

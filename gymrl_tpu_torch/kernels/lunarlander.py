@@ -3,9 +3,10 @@
 ``lander_step(params, state, action, disp)`` computes what
 ``LunarLander.step_from_plain`` computes and ``lander_reset(params, draws)``
 what ``LunarLander.reset_from_plain`` computes, for a batch on a CUDA
-device, each in one launch of one thread per env. ``LunarLander.step_from``
-/ ``reset_from`` call them for every CUDA batch; a tensor on another device
-is refused here, before anything is built.
+device, each in one launch: the step with a tile of two lanes per env,
+the reset with one thread per env (the launchers pick the grid).
+``LunarLander.step_from`` / ``reset_from`` call them for every CUDA batch;
+a tensor on another device is refused here, before anything is built.
 
 The kernels' constants are ``-D`` defines made by ``defines()`` from the
 Python module's constants, each rounded to float32 as the plain path
@@ -34,6 +35,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C launchers' parameters in order (``lunarlander.cu``, ``extern "C"``).
 STEP_ARGTYPES = [_P] * 27 + [_I] * 4 + [_F] * 4 + [_I, _P]
 RESET_ARGTYPES = [_P] * 16 + [_I] * 2 + [_F] * 3 + [_I, _P]
+TRIG_CHECK_ARGTYPES = [_P, _I, _P]
 
 _LIB: ctypes.CDLL | None = None
 
@@ -105,6 +107,8 @@ def _library() -> ctypes.CDLL:
         lib.lander_step_launch.restype = ctypes.c_int
         lib.lander_reset_launch.argtypes = RESET_ARGTYPES
         lib.lander_reset_launch.restype = ctypes.c_int
+        lib.trig_check_launch.argtypes = TRIG_CHECK_ARGTYPES
+        lib.trig_check_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -233,3 +237,15 @@ def lander_reset(params: ll.LunarLanderParams, draws: ll.ResetDraws):
                  float(params.turbulence_power), _dt_g(params)], dev, "lander_reset")
         kernels.LAUNCHES["lunarlander_reset"] += 1
     return state, obs
+
+
+def trig_mismatches(device: torch.device) -> tuple[int, int]:
+    """How many of the 2^32 float32 inputs get another sin or cos from the
+    kernels' own ``lib_sinf`` / ``lib_sincosf`` than from the CUDA math
+    library's ``sinf`` / ``cosf`` on ``device`` (``trig_check``; two NaNs
+    agree). The kernels keep the library's bits only if both are 0."""
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"trig_mismatches runs on a CUDA device, not {device}")
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    _launch(_library().trig_check_launch, [counts], [], counts.device, "trig_check")
+    return tuple(int(x) for x in counts.cpu())

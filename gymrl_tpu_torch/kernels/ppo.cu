@@ -32,6 +32,11 @@
 //   grad_sq_norms  16-byte loads where a tensor lies on 16 B, all of a thread's loads in
 //                  flight before it sums; the last block stages every partial in shared memory
 //                  at once, and a warp per tensor sums that tensor's with a shuffle tree.
+//   clip_adam      its own chunk (PPO_ADAM_CHUNK, one float4 of each array a thread), so the
+//                  200,965 parameters of the bench's net are ~200 blocks, more than one wave
+//                  of 132 SMs; every thread issues its loads of g, p, m and v (float4 where
+//                  all four lie on 16 B) before any arithmetic, and computes the clip scale
+//                  from the squares itself after its loads: no serial prologue, no barrier.
 //
 // Deterministic: no float atomics. A reduction across blocks writes per-block partials in
 // float64; the last block to finish (an integer ticket that resets itself) sums them in a
@@ -62,6 +67,7 @@
 
 #define THREADS PPO_THREADS
 #define CHUNK PPO_CHUNK
+#define ADAM_CHUNK PPO_ADAM_CHUNK
 #define MAX_TENSORS PPO_MAX_TENSORS
 #define MAX_ACTIONS PPO_MAX_ACTIONS
 #define N_METRICS 5
@@ -69,12 +75,14 @@
 constexpr int WARPS = THREADS / 32;
 constexpr int LOADS = CHUNK / (4 * THREADS);  // float4 loads a thread of grad_sq_norms makes
 constexpr int STAGED = 4 * THREADS;     // partials the norms' last block stages in shared memory
+constexpr int ADAM_VEC = ADAM_CHUNK / (4 * THREADS);  // float4 of each array a thread of clip_adam
 
 static_assert(THREADS % 32 == 0 && (WARPS & (WARPS - 1)) == 0 && WARPS <= 32,
               "whole warps, a power of two of them");
 static_assert(MAX_ACTIONS == 32, "with_lanes instantiates P = 1, 2, 4, ..., 32");
 static_assert(MAX_TENSORS <= 32, "NormTable::aligned holds a bit per tensor");
 static_assert(CHUNK % (4 * THREADS) == 0, "a chunk is whole float4 loads of every thread");
+static_assert(ADAM_CHUNK % (4 * THREADS) == 0, "clip_adam's chunk is whole float4 loads too");
 
 namespace {
 
@@ -324,7 +332,8 @@ struct AdamTable {
   long long numel[MAX_TENSORS];
   float step_size[MAX_TENSORS];  // float32(-lr / bias_correction1)
   float bc2[MAX_TENSORS];        // sqrt(bias_correction2), or its reciprocal (see `divide`)
-  int chunk_start[MAX_TENSORS + 1];
+  int chunk_start[MAX_TENSORS + 1];  // in ADAM_CHUNK chunks
+  unsigned int aligned;  // bit k: p, g, m and v of tensor k all lie on 16 B (float4 loads)
   int n;
 };
 
@@ -400,44 +409,136 @@ __global__ void __launch_bounds__(THREADS) grad_sq_norms(NormTable t, float* sq,
   }
 }
 
-__global__ void __launch_bounds__(THREADS) clip_adam(AdamTable t, AdamScalars s) {
-  __shared__ float scale;
-  if (threadIdx.x == 0) {  // the global norm, from the squares in a fixed order
-    double total = 0.0;
-    for (int j = 0; j < s.n_sq; ++j) total += s.sq[j];
-    const float norm = (float)sqrt(total);
-    // where(norm < max, 1, max / norm), and max / norm is reciprocal(norm) * max
-    scale = norm < s.max_norm ? 1.0f : (1.0f / norm) * s.max_norm;
+// The clip scale from the squares: their float64 sum in order j = 0, 1, ..., n_sq - 1 (all
+// loads of a group of 32 issued before its adds), the norm rounded to float32 once, then
+// where(norm < max, 1, max / norm) with max / norm as reciprocal(norm) * max.
+__device__ __forceinline__ float clip_scale(const AdamScalars& s) {
+  double total = 0.0;
+  for (int j0 = 0; j0 < s.n_sq; j0 += 32) {
+    float q[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) q[j] = j0 + j < s.n_sq ? __ldg(s.sq + j0 + j) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+      if (j0 + j < s.n_sq) total += q[j];
   }
-  __syncthreads();
+  const float norm = (float)sqrt(total);
+  return norm < s.max_norm ? 1.0f : (1.0f / norm) * s.max_norm;
+}
+
+// torch.optim.Adam's step of one element with the clipped gradient, op for op as the plain
+// path rounds it.
+__device__ __forceinline__ void adam_element(float g, float& p, float& m, float& v, float scale,
+                                             const AdamScalars& s, float step_size, float bc2) {
+  const float gc = g * scale;                                 // _foreach_mul_(grads, scale)
+  const float m1 = fmaf(s.lerp_weight, gc - m, m);            // exp_avg.lerp_(g, 1 - b1)
+  const float v1 = fmaf(s.one_minus_beta2, gc * gc, v * s.beta2);  // mul_, addcmul_
+  const float root = sqrtf(v1);
+  const float denom = (s.divide ? root / bc2 : root * bc2) + s.eps;
+  p = fmaf(step_size, m1 / denom, p);                         // addcdiv_(m, denom, -ss)
+  m = m1;
+  v = v1;
+}
+
+__device__ __forceinline__ void adam4(const float4 g, float4& p, float4& m, float4& v,
+                                      float scale, const AdamScalars& s, float step_size,
+                                      float bc2) {
+  adam_element(g.x, p.x, m.x, v.x, scale, s, step_size, bc2);
+  adam_element(g.y, p.y, m.y, v.y, scale, s, step_size, bc2);
+  adam_element(g.z, p.z, m.z, v.z, scale, s, step_size, bc2);
+  adam_element(g.w, p.w, m.w, v.w, scale, s, step_size, bc2);
+}
+
+// One chunk of ADAM_CHUNK elements of one tensor per block. Every thread issues all of its
+// loads (ADAM_VEC float4 of each of g, p, m and v where the tensor's four arrays lie on
+// 16 B; else 4 * ADAM_VEC floats of each) before any arithmetic; the clip scale is computed
+// in every thread after its loads are in flight, so no barrier and no serial prologue sits
+// before them; then the arithmetic and the stores, float4 where the loads were.
+__global__ void __launch_bounds__(THREADS) clip_adam(AdamTable t, AdamScalars s) {
   const int k = tensor_of(t.chunk_start, t.n);
-  const long long begin = (long long)(blockIdx.x - t.chunk_start[k]) * CHUNK;
-  const long long end = min(begin + CHUNK, t.numel[k]);
-  float* p = t.p[k];
-  float* m = t.m[k];
-  float* v = t.v[k];
-  const float* g = t.g[k];
+  const long long begin = (long long)(blockIdx.x - t.chunk_start[k]) * ADAM_CHUNK;
+  const int len = (int)min((long long)ADAM_CHUNK, t.numel[k] - begin);
+  float* p = t.p[k] + begin;
+  float* m = t.m[k] + begin;
+  float* v = t.v[k] + begin;
+  const float* g = t.g[k] + begin;
   const float step_size = t.step_size[k], bc2 = t.bc2[k];
-  for (long long e = begin + threadIdx.x; e < end; e += THREADS) {
-    const float gc = g[e] * scale;                              // _foreach_mul_(grads, scale)
-    const float m1 = fmaf(s.lerp_weight, gc - m[e], m[e]);      // exp_avg.lerp_(g, 1 - b1)
-    const float v1 = fmaf(s.one_minus_beta2, gc * gc, v[e] * s.beta2);  // mul_, addcmul_
-    const float root = sqrtf(v1);
-    const float denom = (s.divide ? root / bc2 : root * bc2) + s.eps;
-    p[e] = fmaf(step_size, m1 / denom, p[e]);                   // addcdiv_(m, denom, -ss)
-    m[e] = m1;
-    v[e] = v1;
+  if ((t.aligned >> k) & 1u) {
+    const int n4 = len >> 2;
+    float4 G[ADAM_VEC], P[ADAM_VEC], M[ADAM_VEC], V[ADAM_VEC];
+#pragma unroll
+    for (int r = 0; r < ADAM_VEC; ++r) {
+      const int q = threadIdx.x + r * THREADS;
+      if (q < n4) {
+        G[r] = reinterpret_cast<const float4*>(g)[q];
+        P[r] = reinterpret_cast<const float4*>(p)[q];
+        M[r] = reinterpret_cast<const float4*>(m)[q];
+        V[r] = reinterpret_cast<const float4*>(v)[q];
+      }
+    }
+    // the numel % 4 tail of the tensor's last chunk, one float a thread
+    const int e = (n4 << 2) + threadIdx.x;
+    const bool tail = e < len;
+    float tg = 0.0f, tp = 0.0f, tm = 0.0f, tv = 0.0f;
+    if (tail) {
+      tg = g[e];
+      tp = p[e];
+      tm = m[e];
+      tv = v[e];
+    }
+    const float scale = clip_scale(s);
+#pragma unroll
+    for (int r = 0; r < ADAM_VEC; ++r) {
+      const int q = threadIdx.x + r * THREADS;
+      if (q < n4) {
+        adam4(G[r], P[r], M[r], V[r], scale, s, step_size, bc2);
+        reinterpret_cast<float4*>(p)[q] = P[r];
+        reinterpret_cast<float4*>(m)[q] = M[r];
+        reinterpret_cast<float4*>(v)[q] = V[r];
+      }
+    }
+    if (tail) {
+      adam_element(tg, tp, tm, tv, scale, s, step_size, bc2);
+      p[e] = tp;
+      m[e] = tm;
+      v[e] = tv;
+    }
+  } else {
+    constexpr int SCALARS = 4 * ADAM_VEC;
+    float G[SCALARS], P[SCALARS], M[SCALARS], V[SCALARS];
+#pragma unroll
+    for (int r = 0; r < SCALARS; ++r) {
+      const int e = threadIdx.x + r * THREADS;
+      if (e < len) {
+        G[r] = g[e];
+        P[r] = p[e];
+        M[r] = m[e];
+        V[r] = v[e];
+      }
+    }
+    const float scale = clip_scale(s);
+#pragma unroll
+    for (int r = 0; r < SCALARS; ++r) {
+      const int e = threadIdx.x + r * THREADS;
+      if (e < len) {
+        adam_element(G[r], P[r], M[r], V[r], scale, s, step_size, bc2);
+        p[e] = P[r];
+        m[e] = M[r];
+        v[e] = V[r];
+      }
+    }
   }
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
 
-// chunk_start[0..n] from the tensors' sizes; returns the number of chunks (blocks).
-inline int chunk_table(const long long* numel, int n, int* chunk_start) {
+// chunk_start[0..n] from the tensors' sizes in chunks of `chunk`; returns the number of
+// chunks (blocks).
+inline int chunk_table(const long long* numel, int n, int* chunk_start, int chunk) {
   int c = 0;
   for (int k = 0; k < n; ++k) {
     chunk_start[k] = c;
-    c += (int)((numel[k] + CHUNK - 1) / CHUNK);
+    c += (int)((numel[k] + chunk - 1) / chunk);
   }
   chunk_start[n] = c;
   return c;
@@ -540,18 +641,20 @@ extern "C" int grad_sq_norms_launch(const float* const* grads, const long long* 
     if (reinterpret_cast<uintptr_t>(grads[k]) % 16 != 0) return (int)cudaErrorInvalidValue;
     t.aligned |= 1u << k;
   }
-  const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start);
+  const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start, CHUNK);
   if (chunks <= 0) return (int)cudaErrorInvalidValue;
   grad_sq_norms<<<chunks, THREADS, 0, stream>>>(t, sq, partials, ticket);
   return (int)cudaGetLastError();
 }
 
+// aligned[k] != 0: params[k], grads[k], exp_avgs[k] and exp_avg_sqs[k] all lie on 16 bytes and
+// are read and written as float4 (refused if one does not).
 extern "C" int clip_adam_launch(
     float* const* params, const float* const* grads, float* const* exp_avgs,
     float* const* exp_avg_sqs, const long long* numels, const float* step_sizes,
-    const float* bc2_terms, int n_tensors, const float* sq, int n_sq, float max_norm,
-    float lerp_weight, float beta2, float one_minus_beta2, float eps, int divide, int device,
-    cudaStream_t stream) {
+    const float* bc2_terms, const int* aligned, int n_tensors, const float* sq, int n_sq,
+    float max_norm, float lerp_weight, float beta2, float one_minus_beta2, float eps, int divide,
+    int device, cudaStream_t stream) {
   if (n_tensors <= 0 || n_tensors > MAX_TENSORS || n_sq <= 0) return (int)cudaErrorInvalidValue;
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
@@ -565,8 +668,15 @@ extern "C" int clip_adam_launch(
     t.numel[k] = numels[k];
     t.step_size[k] = step_sizes[k];
     t.bc2[k] = bc2_terms[k];
+    if (!aligned[k]) continue;
+    const uintptr_t any = reinterpret_cast<uintptr_t>(params[k]) |
+                          reinterpret_cast<uintptr_t>(grads[k]) |
+                          reinterpret_cast<uintptr_t>(exp_avgs[k]) |
+                          reinterpret_cast<uintptr_t>(exp_avg_sqs[k]);
+    if (any % 16 != 0) return (int)cudaErrorInvalidValue;
+    t.aligned |= 1u << k;
   }
-  const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start);
+  const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start, ADAM_CHUNK);
   if (chunks <= 0) return (int)cudaErrorInvalidValue;
   const AdamScalars s{sq, n_sq, max_norm, lerp_weight, beta2, one_minus_beta2, eps, divide};
   clip_adam<<<chunks, THREADS, 0, stream>>>(t, s);

@@ -24,18 +24,21 @@ optimizer's tables by value, so a step copies nothing to the card.
 Reductions are deterministic (``ppo.cu``). What a wrapper can reuse from one
 call to the next it keeps: the loss's float32 scalars per config and row
 count, the squares' ctypes table while the gradients keep their addresses
-and sizes, and the float64 partials and ticket of the reductions across
-blocks per (device, stream). Adam's state stays in ``torch.optim.Adam``:
-``clip_adam`` counts each parameter's CPU ``step`` as Adam does and
-computes its bias corrections on the host in double, as Adam does, so
-checkpoints and every reader of ``opt.state`` see what the plain step
-leaves. One difference: the plain clip scales ``p.grad`` in place, the
-kernel reads it and leaves it unscaled.
+and sizes, ``clip_adam``'s table while nothing it was built from changes
+(``_AdamTable``), and the float64 partials and ticket of the reductions
+across blocks per (device, stream). Adam's state stays in
+``torch.optim.Adam``: ``clip_adam`` counts each parameter's CPU ``step`` as
+Adam does and computes its bias corrections on the host in double, as Adam
+does, once per distinct step count, so checkpoints and every reader of
+``opt.state`` see what the plain step leaves. One difference: the plain clip
+scales ``p.grad`` in place, the kernel reads it and leaves it unscaled.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
+import operator
 import os
 
 import numpy as np
@@ -48,7 +51,8 @@ from gymrl_tpu_torch.kernels import build
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ppo.cu")
 
 THREADS = 256  # threads per block
-CHUNK = 2048  # parameters per block of the multi-tensor kernels
+CHUNK = 2048  # parameters per block of grad_sq_norms
+ADAM_CHUNK = 1024  # parameters per block of clip_adam: one float4 of each array a thread
 MAX_TENSORS = 32  # tensors per multi-tensor launch (their table is a kernel argument)
 MAX_ACTIONS = 32  # the loss's widest row of logits
 
@@ -59,7 +63,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LOSS_FWD_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P]
 LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P]
 SQ_NORMS_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _P]
-CLIP_ADAM_ARGTYPES = [_P] * 7 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
+CLIP_ADAM_ARGTYPES = [_P] * 8 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
 
 _LIB: ctypes.CDLL | None = None
 # The float64 partials and the self-resetting int32 ticket of the last-block reductions
@@ -71,11 +75,14 @@ _HEAD_SCALARS: dict[tuple, tuple[float, ...]] = {}
 # grad_sq_norms's launches for the last gradient table: (key, [(ctypes arrays, piece,
 # chunks)]), the key each tensor's (address, numel) and MAX_TENSORS.
 _SQ_TABLE: tuple[tuple, list] | None = None
+# clip_adam's launches for the last optimizer and gradients (``_AdamTable``).
+_ADAM_TABLE: "_AdamTable | None" = None
 
 
 def defines() -> dict[str, str]:
     return {"PPO_THREADS": str(THREADS), "PPO_CHUNK": str(CHUNK),
-            "PPO_MAX_TENSORS": str(MAX_TENSORS), "PPO_MAX_ACTIONS": str(MAX_ACTIONS)}
+            "PPO_ADAM_CHUNK": str(ADAM_CHUNK), "PPO_MAX_TENSORS": str(MAX_TENSORS),
+            "PPO_MAX_ACTIONS": str(MAX_ACTIONS)}
 
 
 def _library() -> ctypes.CDLL:
@@ -251,30 +258,40 @@ def _ptrs(tensors):
     return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
+_data_ptr, _numel = torch.Tensor.data_ptr, torch.Tensor.numel
+_DEVICE, _DTYPE = operator.attrgetter("device"), operator.attrgetter("dtype")
+
+
 def _check_grads(grads: list[torch.Tensor], what: str) -> tuple[torch.device, tuple]:
-    """The gradients' device, and their ``(address, numel)`` each, in one
-    pass that refuses what the kernels do not take."""
+    """The gradients' device, and their ``(address, numel)`` each; refuses
+    what the kernels do not take (a C-level pass, and on a refusal the
+    per-tensor pass that names it)."""
     if not grads:
         raise ValueError(f"{what}: no gradients")
     if grads[0] is None:
         raise ValueError(f"{what}: a gradient is None")
     _check_device(grads[0], what, "algos.base.clip_adam_plain_")
     dev = grads[0].device
-    key = []
-    for i, g in enumerate(grads):
-        if g is None:
-            raise ValueError(f"{what}: a gradient is None")
-        if g.device != dev:
-            raise ValueError(f"grads[{i}] is on {g.device}, the batch on {dev}")
-        if g.dtype != torch.float32:
-            raise TypeError(f"grads[{i}] is {g.dtype}, the kernel takes torch.float32")
-        if not g.is_contiguous():
-            raise ValueError(f"grads[{i}] is not contiguous")
-        numel = g.numel()
-        if numel == 0:
-            raise ValueError(f"grads[{i}] is empty")
-        key.append((g.data_ptr(), numel))
-    return dev, tuple(key)
+    try:
+        ptrs, numels = tuple(map(_data_ptr, grads)), tuple(map(_numel, grads))
+        ok = (all(d == dev for d in map(_DEVICE, grads))
+              and all(t is torch.float32 for t in map(_DTYPE, grads))
+              and all(map(torch.Tensor.is_contiguous, grads)) and all(numels))
+    except TypeError:  # a None among them
+        ok = False
+    if not ok:
+        for i, g in enumerate(grads):
+            if g is None:
+                raise ValueError(f"{what}: a gradient is None")
+            if g.device != dev:
+                raise ValueError(f"grads[{i}] is on {g.device}, the batch on {dev}")
+            if g.dtype != torch.float32:
+                raise TypeError(f"grads[{i}] is {g.dtype}, the kernel takes torch.float32")
+            if not g.is_contiguous():
+                raise ValueError(f"grads[{i}] is not contiguous")
+            if g.numel() == 0:
+                raise ValueError(f"grads[{i}] is empty")
+    return dev, tuple(zip(ptrs, numels))
 
 
 def _sq_table(key: tuple) -> list:
@@ -331,53 +348,142 @@ def _adam_scalars(group: dict) -> tuple[float, float, float, bool]:
     return float(beta1), float(beta2), float(group["eps"]), group.get("foreach") is not False
 
 
+def adam_step_terms(step: float, lr: float, beta1: float, beta2: float,
+                    foreach: bool) -> tuple[float, float]:
+    """The kernel's ``(step_size, bc2)`` for one step count, as
+    ``torch.optim.Adam`` computes them on the host in double
+    (``_single_tensor_adam`` / ``_multi_tensor_adam``), each rounded once to
+    float32 where the launch stores it: ``step_size = -(lr / bias_correction1)``;
+    ``bc2 = sqrt(bias_correction2)``, which foreach divides by, or its double
+    reciprocal, since one tensor at a time ``tensor / float`` multiplies by
+    the reciprocal rounded to float32."""
+    bias_correction2_sqrt = (1 - beta2 ** step) ** 0.5
+    return (_f32(-(lr / (1 - beta1 ** step))),
+            _f32(bias_correction2_sqrt if foreach else 1.0 / bias_correction2_sqrt))
+
+
+def aligned_flags(*tables: list[torch.Tensor]) -> list[int]:
+    """Per tensor, 1 where its address in every one of ``tables`` lies on
+    16 bytes (the kernel then moves it as float4), else 0."""
+    return [int(all(t.data_ptr() % 16 == 0 for t in row)) for row in zip(*tables)]
+
+
+# The step counts Adam may hold, by dtype.
+_STEP_CTYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
+
+# The param group's entries that decide the launch besides the tensors.
+_GROUP_KEYS = ("lr", "betas", "eps", "foreach", "amsgrad", "weight_decay", "maximize",
+               "capturable", "differentiable", "fused", "decoupled_weight_decay")
+
+
+class _AdamTable:
+    """clip_adam's launches for one optimizer and its gradients: per piece of
+    ``MAX_TENSORS``, the host arrays of addresses, sizes, the step terms and
+    the alignment flags. Built again when the key changes: any (address,
+    numel) of the params, grads, ``exp_avg`` or ``exp_avg_sq``, the step
+    tensors (by identity), the optimizer's state and param group (by
+    identity: ``load_state_dict`` replaces both) or the group's options. The
+    checks of the tensors and options run only then. It holds the objects
+    its key names, so no identity in the key is reused while it lives."""
+
+    def __init__(self, key, holds, opt, ps, grads, ms, vs, steps, dev):
+        group = opt.param_groups[0]
+        beta1, beta2, eps, foreach = _adam_scalars(group)
+        for i, (p, g, m, v, t) in enumerate(zip(ps, grads, ms, vs, steps)):
+            _expect(f"param {i}", p.data, tuple(g.shape), dev)
+            _expect(f"exp_avg {i}", m, tuple(g.shape), dev)
+            _expect(f"exp_avg_sq {i}", v, tuple(g.shape), dev)
+            if t.device.type != "cpu":
+                raise ValueError("clip_adam counts Adam's steps on the host (capturable is off)")
+        self.key, self.holds = key, holds
+        # each CPU step count as a ctypes scalar on its memory: +1 and a read without a
+        # dispatch (a float32 count + 1 in double, rounded once, is the float32 sum)
+        self.counts = []
+        for t in steps:
+            if t.dtype not in _STEP_CTYPES or t.numel() != 1:
+                raise ValueError(f"clip_adam counts a float32 or float64 step, not {t.dtype}"
+                                 f"{list(t.shape)}")
+            self.counts.append(_STEP_CTYPES[t.dtype].from_address(t.data_ptr()))
+        self.lr, self.beta1, self.beta2, self.foreach = float(group["lr"]), beta1, beta2, foreach
+        self.scalars = (_f32(1 - beta1), _f32(beta2), _f32(1 - beta2), _f32(eps), int(foreach))
+        flags = aligned_flags(ps, grads, ms, vs)
+        self.launches = []
+        for piece in _pieces(len(ps)):
+            k = piece.stop - piece.start
+            arrays = (_ptrs(ps[piece]), _ptrs(grads[piece]), _ptrs(ms[piece]), _ptrs(vs[piece]),
+                      (ctypes.c_longlong * k)(*(p.numel() for p in ps[piece])),
+                      (ctypes.c_float * k)(), (ctypes.c_float * k)(),
+                      (ctypes.c_int * k)(*flags[piece]))
+            self.launches.append((arrays, piece, k))
+
+    def count_step(self) -> None:
+        """Adam's step: one more on every CPU step count (as its
+        ``_foreach_add_``), and each tensor's step terms, computed once per
+        distinct count (in a trainer every parameter has the same)."""
+        values = []
+        for count in self.counts:
+            count.value += 1.0
+            values.append(count.value)
+        if values.count(values[0]) == len(values):
+            ss, b2 = adam_step_terms(values[0], self.lr, self.beta1, self.beta2, self.foreach)
+            for arrays, _, k in self.launches:
+                arrays[5][:], arrays[6][:] = [ss] * k, [b2] * k
+            return
+        terms: dict[float, tuple[float, float]] = {}
+        for arrays, piece, _ in self.launches:
+            for j, step in enumerate(values[piece]):
+                both = terms.get(step)
+                if both is None:
+                    both = terms[step] = adam_step_terms(step, self.lr, self.beta1, self.beta2,
+                                                         self.foreach)
+                arrays[5][j], arrays[6][j] = both
+
+
+def _adam_table(opt: torch.optim.Adam, grads: list[torch.Tensor], gkey: tuple,
+                dev: torch.device) -> _AdamTable:
+    """The cached table for ``opt`` and ``grads``, rebuilt (and checked)
+    when its key changed."""
+    global _ADAM_TABLE
+    if len(opt.param_groups) != 1:
+        raise ValueError(f"clip_adam steps one param group, not {len(opt.param_groups)}")
+    group = opt.param_groups[0]
+    ps = group["params"]
+    if len(ps) != len(grads):
+        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
+    state = opt.state
+    try:
+        states = list(map(state.__getitem__, ps))
+        ms = [s["exp_avg"] for s in states]
+        vs = [s["exp_avg_sq"] for s in states]
+        steps = [s["step"] for s in states]
+    except KeyError:
+        raise ValueError("clip_adam needs Adam's state made up front (algos.base.adam)") from None
+    key = (MAX_TENSORS, ADAM_CHUNK, id(state), id(group), tuple(map(group.get, _GROUP_KEYS)),
+           gkey, tuple(map(_data_ptr, itertools.chain(ps, ms, vs))),
+           tuple(map(_numel, itertools.chain(ps, ms, vs))), tuple(map(id, steps)))
+    table = _ADAM_TABLE
+    if table is None or table.key != key:
+        table = _ADAM_TABLE = _AdamTable(key, (state, group, steps), opt, list(ps), grads, ms,
+                                         vs, steps, dev)
+    return table
+
+
 def clip_adam(opt: torch.optim.Adam, grads: list[torch.Tensor], sq: torch.Tensor,
               max_norm: float) -> None:
     """The ``clip_adam`` kernel: the global norm from the squares ``sq``, the
     clip scale, and Adam's step of ``opt`` (one param group, as
     ``algos.base.adam`` builds it) with the scaled ``grads``, in place; one
-    launch per ``MAX_TENSORS`` tensors."""
-    dev, _ = _check_grads(grads, "clip_adam")
-    if len(opt.param_groups) != 1:
-        raise ValueError(f"clip_adam steps one param group, not {len(opt.param_groups)}")
-    group = opt.param_groups[0]
-    ps = list(group["params"])
-    if len(ps) != len(grads):
-        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
+    launch per ``MAX_TENSORS`` tensors. Adam's CPU ``step`` counts go up by
+    one as Adam's do; the launch table is kept while nothing it was built
+    from changes (``_AdamTable``)."""
+    dev, gkey = _check_grads(grads, "clip_adam")
     _expect("sq", sq, (len(grads),), dev)
-    beta1, beta2, eps, foreach = _adam_scalars(group)
-    states = [opt.state[p] for p in ps]
-    if not all({"step", "exp_avg", "exp_avg_sq"} <= set(s) for s in states):
-        raise ValueError("clip_adam needs Adam's state made up front (algos.base.adam)")
-    for i, (p, g, s) in enumerate(zip(ps, grads, states)):
-        _expect(f"param {i}", p.data, tuple(g.shape), dev)
-        _expect(f"exp_avg {i}", s["exp_avg"], tuple(g.shape), dev)
-        _expect(f"exp_avg_sq {i}", s["exp_avg_sq"], tuple(g.shape), dev)
-        if s["step"].device.type != "cpu":
-            raise ValueError("clip_adam counts Adam's steps on the host (capturable is off)")
-
+    table = _adam_table(opt, grads, gkey, dev)
     lib = _library()
-    lr = float(group["lr"])
-    steps = [s["step"] for s in states]
-    torch._foreach_add_(steps, 1.0)
-    step_sizes, bc2_terms = [], []
-    for t in steps:  # on the host in double, as _single/_multi_tensor_adam
-        step = t.item()  # a CPU tensor: no sync with the card
-        bias_correction2_sqrt = (1 - beta2 ** step) ** 0.5
-        step_sizes.append(-(lr / (1 - beta1 ** step)))
-        # foreach divides by the scalar; one tensor at a time, `tensor / float`
-        # multiplies by the double reciprocal rounded to float32
-        bc2_terms.append(bias_correction2_sqrt if foreach else 1.0 / bias_correction2_sqrt)
-    for piece in _pieces(len(ps)):
-        k = piece.stop - piece.start
-        arrays = (_ptrs(ps[piece]), _ptrs(grads[piece]),
-                  _ptrs([s["exp_avg"] for s in states[piece]]),
-                  _ptrs([s["exp_avg_sq"] for s in states[piece]]),
-                  (ctypes.c_longlong * k)(*(p.numel() for p in ps[piece])),
-                  (ctypes.c_float * k)(*step_sizes[piece]),
-                  (ctypes.c_float * k)(*bc2_terms[piece]))
+    table.count_step()  # CPU tensors: no sync with the card
+    n_sq, max_norm = len(grads), _f32(max_norm)
+    for arrays, _, k in table.launches:
         _launch(lib.clip_adam_launch,
-                [*map(ctypes.addressof, arrays), k, sq, len(grads), _f32(max_norm),
-                 _f32(1 - beta1), _f32(beta2), _f32(1 - beta2), _f32(eps), int(foreach)],
+                [*map(ctypes.addressof, arrays), k, sq, n_sq, max_norm, *table.scalars],
                 dev, "clip_adam")
         kernels.LAUNCHES["clip_adam"] += 1

@@ -1,16 +1,22 @@
 """Checkpoint / resume (counterpart of ``gymrl_tpu/utils/checkpoint.py``).
 
-The whole train state — params, targets, optimizer moments and step
-counts, replay contents (with the PER sum-tree and max priority), the
+The train state — params, targets, optimizer moments and step counts, the
 n-step window, env batch, the recurrent trainers' GRU hidden per env,
 normalization stats and reward scaler, PER β, the noise generator's state
 and the counters — is one ``torch.save`` file, so a restore puts training
-and eval-time normalization back exactly.
+and eval-time normalization back exactly. The replay is left out, as the
+JAX package's ``_strip_replay`` leaves it out after gymRL's
+``ModelLoader``, which never saves a buffer: a train state's whole
+``replay`` field (the transitions, the PER sum-tree and max priority, the
+write position and fill) is saved as None, and a restore keeps the
+example's fresh, empty replay. An off-policy trainer therefore resumes on
+an empty buffer and waits for ``batch_size`` rows before it updates again.
 
-Restore is strict. The file must have exactly the structure of the example
-state it is restored into, with every tensor of the same shape and dtype;
-anything else raises ``ValueError`` naming the first mismatch. There is no
-fallback that keeps fresh values for fields that do not fit.
+Restore is strict for every other field. The file must have exactly the
+structure of the example state it is restored into, with every tensor of
+the same shape and dtype; anything else raises ``ValueError`` naming the
+first mismatch. There is no fallback that keeps fresh values for fields
+that do not fit.
 
 Under a mesh (``distributed/mesh.py``) the file holds the whole state: save
 gathers every split leaf (the env batch over ``data``, PPO's trunk split
@@ -192,6 +198,13 @@ def _over(tree: Any, layout: Any, fn) -> Any:
     return tree
 
 
+def _strip_replay(ts: Any) -> Any:
+    """``ts`` with its ``replay`` field set to None (never checkpointed)."""
+    if hasattr(ts, "_replace") and hasattr(ts, "replay"):
+        return ts._replace(replay=None)
+    return ts
+
+
 def gathered_state(ts: Any, mesh=None) -> Any:
     """``state_tree(ts)`` with every split leaf gathered whole over its mesh
     axis: the same tree on every rank, and the unsharded trainer's layout.
@@ -203,10 +216,11 @@ def gathered_state(ts: Any, mesh=None) -> Any:
 
 
 def save_checkpoint(path: str, ts: Any, mesh=None) -> str:
-    """Write ``ts`` to ``path``. Under a ``mesh`` every rank calls this:
-    split leaves are gathered whole and rank 0 writes the file."""
+    """Write ``ts`` to ``path``, its replay left out. Under a ``mesh`` every
+    rank calls this: split leaves are gathered whole and rank 0 writes the
+    file."""
     path = os.path.abspath(path)
-    tree = gathered_state(ts, mesh)
+    tree = gathered_state(_strip_replay(ts), mesh)
     if mesh is None or mesh.rank == 0:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         tmp = path + ".tmp"
@@ -219,21 +233,27 @@ def save_checkpoint(path: str, ts: Any, mesh=None) -> str:
 
 def restore_checkpoint(path: str, example_ts: Any, mesh=None) -> Any:
     """Restore into ``example_ts`` (a fresh state of the same trainer config),
-    raising ``ValueError`` on any structure, shape or dtype mismatch. Under
-    a ``mesh`` the file's whole tensors are checked against the example's
-    whole shapes, and this rank keeps its rows and splits."""
+    raising ``ValueError`` on any structure, shape or dtype mismatch. The
+    example's replay is kept: the file holds none. Under a ``mesh`` the
+    file's whole tensors are checked against the example's whole shapes,
+    and this rank keeps its rows and splits."""
     tree = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
-    example = _to_tree(example_ts)
+    stripped = _strip_replay(example_ts)
+    example = _to_tree(stripped)
     if mesh is None:
         _check_same(example, tree)
-        return _load(example_ts, tree)
-    layout = state_layout(example_ts)
+        restored = _load(stripped, tree)
+    else:
+        layout = state_layout(stripped)
 
-    def whole(x, lay):
-        shape = list(x.shape)
-        shape[lay[1]] *= mesh.shape[lay[0]]
-        return torch.empty(shape, dtype=x.dtype, device="meta")
+        def whole(x, lay):
+            shape = list(x.shape)
+            shape[lay[1]] *= mesh.shape[lay[0]]
+            return torch.empty(shape, dtype=x.dtype, device="meta")
 
-    _check_same(_over(example, layout, whole), tree)
-    return _load(example_ts, _over(tree, layout,
-                                   lambda x, lay: mesh.shard(x, lay[1], lay[0]).clone()))
+        _check_same(_over(example, layout, whole), tree)
+        restored = _load(stripped, _over(tree, layout,
+                                         lambda x, lay: mesh.shard(x, lay[1], lay[0]).clone()))
+    if stripped is not example_ts:
+        restored = restored._replace(replay=example_ts.replay)
+    return restored

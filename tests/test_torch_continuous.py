@@ -683,13 +683,19 @@ def test_sac_checkpoint_round_trip_and_mismatch_raises(tmp_path):
     ts, _ = trainer.train_iter(ts)
     path = save_checkpoint(str(tmp_path / "sac.pt"), ts)
     restored = restore_checkpoint(path, trainer.init(1))
+    # the replay is not saved (the reference's _strip_replay): it comes back fresh
+    fresh = trainer.init(1).replay
+    assert torch.load(path, weights_only=True)["replay"] is None and ts.replay.size == 64
     assert (restored.replay.size, restored.learn_steps, restored.env_steps) == \
-        (ts.replay.size, ts.learn_steps, ts.env_steps) == (64, 13, 64)
+        (fresh.size, ts.learn_steps, ts.env_steps) == (0, 13, 64)
+    for a, b in zip(restored.replay.data, fresh.data):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     # log_alpha is loaded in place: its optimizer still steps the same tensor
     la = restored.nets["log_alpha"]
     assert la is next(iter(restored.opts["log_alpha"].state)) and float(la.detach()) == float(
         ts.nets["log_alpha"].detach())
-    ts, out = trainer.train_iter(ts)
+    # every other field came back: the next iteration from the same fresh replay is the same
+    ts, out = trainer.train_iter(ts._replace(replay=fresh))
     restored, out_r = trainer.train_iter(restored)
     for where in ("nets", "targets"):
         got, want = _net_state(restored, where), _net_state(ts, where)

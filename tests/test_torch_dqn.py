@@ -748,14 +748,19 @@ def test_dqn_checkpoint_round_trip_and_mismatch_raises(tmp_path):
     ts, _ = trainer.train_iter(ts)
     path = save_checkpoint(str(tmp_path / "dqn.pt"), ts)
     restored = restore_checkpoint(path, trainer.init(1))
+    # the replay is not saved (the reference's _strip_replay): it comes back fresh
+    fresh = trainer.init(1).replay
+    assert torch.load(path, weights_only=True)["replay"] is None
+    assert (ts.replay.pos, ts.replay.size) == (0, 64)
     assert (restored.replay.pos, restored.replay.size, restored.env_steps) == \
-        (ts.replay.pos, ts.replay.size, ts.env_steps) == (0, 64, 64)
-    for a, b in zip(restored.replay.data, ts.replay.data):
+        (fresh.pos, fresh.size, ts.env_steps) == (0, 0, 64)
+    for a, b in zip(restored.replay.data, fresh.data):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert int(restored.episodes) == int(ts.episodes)
     assert int(restored.target_syncs) == int(ts.target_syncs)
-    # the whole state came back: the next iteration is the same on both
-    ts, out = trainer.train_iter(ts)
+    # every other field came back: the next iteration is the same on both, from
+    # the same fresh replay
+    ts, out = trainer.train_iter(ts._replace(replay=fresh))
     restored, out_r = trainer.train_iter(restored)
     for net in ("params", "target_params"):
         for k, v in getattr(ts, net).state_dict().items():
@@ -765,9 +770,13 @@ def test_dqn_checkpoint_round_trip_and_mismatch_raises(tmp_path):
     with pytest.raises(ValueError, match="fc1.weight"):
         restore_checkpoint(path, DQNTrainer(dataclasses.replace(cfg, hidden_dim=16),
                                             device="cpu").init(0))
-    with pytest.raises(ValueError, match="replay"):
-        restore_checkpoint(path, DQNTrainer(dataclasses.replace(cfg, memory_capacity=32),
+    with pytest.raises(ValueError, match="vec_state"):
+        restore_checkpoint(path, DQNTrainer(dataclasses.replace(cfg, num_envs=8),
                                             device="cpu").init(0))
+    # a replay of another capacity is no mismatch: the example's fresh one is kept
+    smaller = restore_checkpoint(path, DQNTrainer(dataclasses.replace(cfg, memory_capacity=32),
+                                                  device="cpu").init(0))
+    assert smaller.replay.data.obs.shape[0] == 32 and smaller.replay.size == 0
 
 
 def test_default_device_without_cuda_raises():

@@ -484,14 +484,14 @@ class FakeLib:
                             sq=sq, partials=partials))
         return 0
 
-    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, k, sq, n_sq,
-                         max_norm, w, beta2, c2, eps, divide, device, stream):
+    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, aligned, k, sq,
+                         n_sq, max_norm, w, beta2, c2, eps, divide, device, stream):
         read = lambda addr, t=ctypes.c_void_p: list((t * k).from_address(addr))  # noqa: E731
         self.adam.append(dict(params=read(params), grads=read(grads), m=read(m), v=read(v),
                               numels=read(numels, ctypes.c_longlong),
                               step_sizes=read(step_sizes, ctypes.c_float),
-                              bc2=read(bc2, ctypes.c_float), sq=sq, n_sq=n_sq,
-                              scalars=(max_norm, w, beta2, c2, eps, divide)))
+                              bc2=read(bc2, ctypes.c_float), aligned=read(aligned, ctypes.c_int),
+                              sq=sq, n_sq=n_sq, scalars=(max_norm, w, beta2, c2, eps, divide)))
         return 0
 
 

@@ -520,7 +520,9 @@ def test_uint8_round_trip_matches_reference(rng):
 def test_train_state_interop_and_checkpoint_round_trip(ref_trainer, tmp_path):
     """A reference pixel state carried across to the bit (HWIO conv kernels
     into OIHW weights, the nested ``PixelState``, the uint8 ring); a strict
-    checkpoint round trip after which the next iteration is the same."""
+    checkpoint round trip that leaves the replay out and restores it fresh,
+    as the reference does, after which the next iteration from the same
+    fresh replay is the same."""
     rt = ref_trainer
     jts = jax.device_get(rt.train_iter(rt.init(jax.random.PRNGKey(0)))[0])
     trainer, ts, _ = _port(rt, jts)
@@ -537,16 +539,23 @@ def test_train_state_interop_and_checkpoint_round_trip(ref_trainer, tmp_path):
     ts = ts._replace(noise=Noise("cpu", 5))
     path = save_checkpoint(str(tmp_path / "pixels.pt"), ts)
     restored = restore_checkpoint(path, trainer.init(1))
-    assert restored.replay.data.obs.dtype == torch.uint8
+    fresh = trainer.init(1).replay
+    assert torch.load(path, weights_only=True)["replay"] is None and ts.replay.size > 0
+    assert restored.replay.data.obs.dtype == torch.uint8 and restored.replay.size == 0
+    torch.testing.assert_close(restored.replay.data.obs, fresh.data.obs, rtol=0, atol=0)
     assert isinstance(restored.vec_state.env_state, PixelState)
-    ts, out = trainer.train_iter(ts)
+    ts, out = trainer.train_iter(ts._replace(replay=fresh))
     restored, out_r = trainer.train_iter(restored)
     for k, v in ts.params.state_dict().items():
         torch.testing.assert_close(restored.params.state_dict()[k], v, rtol=0, atol=0)
     torch.testing.assert_close(restored.replay.data.obs, ts.replay.data.obs, rtol=0, atol=0)
-    with pytest.raises(ValueError, match="replay"):
+    with pytest.raises(ValueError, match="params"):
         restore_checkpoint(path, V.DQNFamilyTrainer(
-            V.dqn_pixels_config(**{**SMALL, "memory_capacity": 32}), device="cpu").init(0))
+            V.dqn_pixels_config(**{**SMALL, "hidden_dim": 16}), device="cpu").init(0))
+    # a replay of another capacity is no mismatch: the example's fresh one is kept
+    smaller = restore_checkpoint(path, V.DQNFamilyTrainer(
+        V.dqn_pixels_config(**{**SMALL, "memory_capacity": 32}), device="cpu").init(0))
+    assert smaller.replay.data.obs.shape[0] == 32 and smaller.replay.size == 0
 
 
 def test_cli_workload_trains_in_train_loop_on_cpu(tmp_path, monkeypatch):
