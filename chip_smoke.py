@@ -214,7 +214,9 @@ only if all of them pass.
      against the plain path on the card, from the same inputs, at every
      batch the main path gives them (32, 64 and 8192 envs: the lander CLI
      workloads' and the bench config's, ``kernel_envs``): (a)
-     ``lander_reset`` against ``reset_from_plain``, wind off and on; (b)
+     ``lander_reset`` against ``reset_from_plain``, wind off and on, and
+     from draws that lie off 16 bytes at 5 envs fewer than the widest batch
+     (a ragged last block); (b)
      ``lander_step`` against ``step_from_plain`` from every state of a
      200-step random-action ``VecEnv`` rollout on the kernels (discrete and
      continuous, each without and with wind; by step
@@ -272,9 +274,12 @@ only if all of them pass.
      float4 a row), and on ``ppo_cartpole``'s rows (A = 2: every 64-row
      minibatch of an epoch, and the same shapes from its rows repeated to
      16,384). Two ``ppo_loss_fwd`` launches on the same inputs must give the
-     same bits. (b) The squares: ``grad_sq_norms`` on a minibatch's real
-     gradients, as they come and with each tensor scaled by its own power
-     of 2, on a 40-tensor table (two launches), and on views of one buffer
+     same bits; dlogits and dvalues must equal autograd's bits (the tie rows
+     left out of dlogits), and ``ppo_loss_bwd`` must give the same bits on a
+     rerun and from a copy of the logits off 16 bytes (its scalar rows).
+     (b) The squares: ``grad_sq_norms`` on a minibatch's real gradients,
+     as they come and with each tensor scaled by its own power of 2, on a
+     40-tensor table (two launches), and on views of one buffer
      off 16 bytes or with a ``numel % 4`` tail, each square within 1e-6 of
      its float64 sum relative to itself, and within 1e-6 of the largest
      plain square (``torch._foreach_norm``, squared) against the plain one,
@@ -291,13 +296,15 @@ only if all of them pass.
      (``_dist_check``). (d) ms per call of each kernel, its plain version
      and, for ``grad_sq_norms`` and ``clip_adam``, the library call
      (``torch._foreach_norm``; the clip and ``torch.optim.Adam(fused=True)``)
-     at both shapes, the device times from traces (refused and taken again,
-     at most five times, until the trace holds exactly one kernel a call),
+     at both shapes and at ``ppo_cartpole``'s (64 rows, A = 2), the device
+     times from traces (refused and taken again, at most five times, until
+     the trace holds exactly one kernel a call),
      and the bound;
      each kernel's registers, stack and spills from ``nvcc -Xptxas -v`` on
-     both sources, none of either for ``ppo_loss_fwd`` (every
-     instantiation), ``grad_sq_norms``, ``clip_adam``, ``lander_step`` (all
-     four instantiations) and ``lander_reset`` (both), and the lander
+     both sources, none of either for ``ppo_loss_fwd`` and ``ppo_loss_bwd``
+     (every instantiation), ``grad_sq_norms``, ``clip_adam``,
+     ``lander_step`` (all four instantiations) and ``lander_reset`` (both),
+     and the lander
      kernels' local loads and stores in their SASS (``cuobjdump -sass``,
      where the toolkit has it). (e) The
      CUDA launches of one grad step (``PPOTrainer._minibatch_step``) on the
@@ -2760,6 +2767,13 @@ def kernel_envs() -> tuple[int, ...]:
     return tuple(sorted({c.num_envs for c in cfgs}))
 
 
+def _offset_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` one element into a buffer of its own: off
+    the 16 bytes (and, for 4-byte elements, the 8) its allocation lies on."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    return buf[1:].view(x.shape).copy_(x)
+
+
 def _check_kernels(device: torch.device, envs, steps: int = KERNEL_STEPS) -> dict:
     """Phase 18 (a)-(b): each kernel against its plain version on ``device``,
     from the same inputs, at each batch of ``envs``."""
@@ -2781,6 +2795,19 @@ def _check_kernels(device: torch.device, envs, steps: int = KERNEL_STEPS) -> dic
             r.update(envs=num, wind=wind)
             log("phase 18 reset: " + json.dumps(r))
             out["reset"].append(r)
+    # the same from draws that lie off 16 and 8 bytes (each a view one element into its
+    # buffer), at a batch whose last block is ragged: the kernel's edge floats and single loads
+    num = envs[-1] - 5
+    for wind in (False, True):
+        env = LunarLander(enable_wind=wind)
+        params = env.default_params()
+        draws = type(draws)(*map(_offset_copy, env.reset_draws(Noise(device, 4), num)))
+        (ks, ko), (ps, po) = lander_reset(params, draws), env.reset_from_plain(params, draws)
+        pairs = [(f, getattr(ks, f), getattr(ps, f)) for f in ks._fields] + [("obs", ko, po)]
+        r = _field_diff(pairs, num, KERNEL_ATOL, label=f"reset {num} wind={wind} offset draws")
+        r.update(envs=num, wind=wind, draws_offset_bytes=[x.data_ptr() % 16 for x in draws])
+        log("phase 18 reset: " + json.dumps(r))
+        out["reset"].append(r)
 
     # (b) the step, from every state of a random-action rollout on the kernels
     for num in envs:
@@ -3045,6 +3072,8 @@ SQ_NORMS_VIEWS = ((1, 4099), (2, 2050), (3, 7), (0, 4097), (1, 65537), (0, 1), (
 # rows of the loss head beside the minibatches: one block (1, 64), 64 blocks with a ragged
 # last block (16,383) and without (16,384)
 HEAD_ROWS = (1, 64, 16383, 16384)
+# the cases phase 19 (d) times: the bench's 16,384 rows, the CLI's 64 (A = 4 and A = 2)
+UPDATE_TIMED = ("bench", "ppo_lunarlander", "ppo_cartpole")
 # Float32 operations counted in ppo.cu for a row of A = 4 logits (each add, multiply,
 # compare, select, exp and log as one), and per parameter for the multi-tensor kernels.
 LOSS_FWD_OPS_PER_ROW = 64
@@ -3144,7 +3173,8 @@ def _head_case(trainer, net, mb, spread: bool = False) -> dict:
     ``ppo_loss_fwd`` launches give the same bits. The columns are the
     minibatch's own (side by side: the float4 loads), or ``_spread``."""
     from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
-    from gymrl_tpu_torch.kernels.ppo import METRICS, PPOHeadLoss, columns_packed, ppo_loss_fwd
+    from gymrl_tpu_torch.kernels.ppo import (METRICS, PPOHeadLoss, columns_packed, ppo_loss_bwd,
+                                             ppo_loss_fwd)
 
     cfg = trainer.cfg
     cols = _columns(trainer, mb)
@@ -3170,6 +3200,10 @@ def _head_case(trainer, net, mb, spread: bool = False) -> dict:
                    if k != "clip_frac"} for route, vals in (("kernel", vk), ("plain", vp))}
     twice = [torch.cat([x.reshape(-1) for x in ppo_loss_fwd(logits, values, *cols, cfg)])
              for _ in range(2)]
+    # the backward twice, and from logits off 16 bytes (its scalar row loads and stores)
+    grad_out = torch.ones((), device=logits.device)
+    bwd = [torch.cat([x.reshape(-1) for x in ppo_loss_bwd(lg, values, *cols, grad_out, cfg)])
+           for lg in (logits, logits, _offset_copy(logits))]
     keep = ~ties
     dl_err = float((dlk - dlp)[keep].abs().max()) if keep.any() else 0.0
     dv_err = float((dvk - dvp).abs().max())
@@ -3179,6 +3213,8 @@ def _head_case(trainer, net, mb, spread: bool = False) -> dict:
         "kernel_vs_plain_rel": {k: abs(a - b) / abs(b) if b else abs(a)
                                 for k, a, b in zip(names, vk, vp) if k != "clip_frac"},
         "same_bits": bool(torch.equal(*twice)),
+        "bwd_same_bits": bool(torch.equal(bwd[0], bwd[1]) and torch.equal(bwd[0], bwd[2])),
+        "grad_bits_equal": bool(torch.equal(dlk[keep], dlp[keep]) and torch.equal(dvk, dvp)),
         "clip_frac_rows_apart": abs(vk[4] - vp[4]) * mb.shape[0],
         "dlogits_err": dl_err, "dlogits_scale": float(dlp.abs().max()),
         "dvalues_err": dv_err, "dvalues_scale": float(dvp.abs().max()),
@@ -3190,7 +3226,9 @@ def _head_case(trainer, net, mb, spread: bool = False) -> dict:
 def _merge_head(cases: list[dict]) -> dict:
     out = {"rows": sum(c["rows"] for c in cases), "minibatches": len(cases),
            "packed": sorted({c["packed"] for c in cases}),
-           "same_bits": all(c["same_bits"] for c in cases)}
+           "same_bits": all(c["same_bits"] for c in cases),
+           "bwd_same_bits": all(c["bwd_same_bits"] for c in cases),
+           "grad_bits_equal": all(c["grad_bits_equal"] for c in cases)}
     for k in ("below", "inside", "above", "dual_clipped", "tie_rows"):
         out[k] = sum(c[k] for c in cases)
     for key in ("rel_err", "plain_rel_err", "kernel_vs_plain_rel"):
@@ -3213,6 +3251,10 @@ def _check_head(label: str, r: dict, tie_rows_per_case: list[int], cover: bool =
     breaks = [f"{k} {v} > {HEAD_RTOL}" for k, v in r["rel_err"].items() if not v <= HEAD_RTOL]
     if not r["same_bits"]:
         breaks.append("two ppo_loss_fwd launches on the same inputs gave other bits")
+    if not r["bwd_same_bits"]:
+        breaks.append("ppo_loss_bwd gave other bits on a rerun or from logits off 16 bytes")
+    if not r["grad_bits_equal"]:
+        breaks.append("dlogits or dvalues differ from autograd's bits")
     breaks += [f"{k} {r[f'{k}_of_scale']} > {HEAD_GRAD_TOL}" for k in ("dlogits", "dvalues")
                if not r[f"{k}_of_scale"] <= HEAD_GRAD_TOL]
     # clip_frac exact, but for the rows that tie at the band's edges
@@ -3673,15 +3715,16 @@ def _update_checks(device: torch.device) -> dict:
 # Each source's kernels as ptxas names them (mangled), and how the report names them.
 PTXAS_NAMES = {
     "ppo": ((r"ppo_loss_fwdILi(\d+)ELb([01])E", "ppo_loss_fwd<{}, {}>"),
-            (r"ppo_loss_bwdILi(\d+)E", "ppo_loss_bwd<{}>"), (r"grad_sq_norms", "grad_sq_norms"),
+            (r"ppo_loss_bwdILi(\d+)ELb([01])ELb([01])E", "ppo_loss_bwd<{}, {}, {}>"),
+            (r"grad_sq_norms", "grad_sq_norms"),
             (r"clip_adam", "clip_adam")),
     "lunarlander": ((r"lander_stepILb([01])ELb([01])E", "lander_step<{}, {}>"),
                     (r"lander_resetILb([01])E", "lander_reset<{}>")),
 }
 # Kernels that must keep to registers (no stack frame, no spills), by the report's prefix,
 # and how many instantiations each has.
-PTXAS_HELD = {"ppo_loss_fwd": 12, "grad_sq_norms": 1, "clip_adam": 1, "lander_step": 4,
-              "lander_reset": 2}
+PTXAS_HELD = {"ppo_loss_fwd": 12, "ppo_loss_bwd": 22, "grad_sq_norms": 1, "clip_adam": 1,
+              "lander_step": 4, "lander_reset": 2}
 
 
 def _kernel_name(mangled: str, patterns) -> str | None:
@@ -3777,8 +3820,7 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
     whole iterations, (d) times, (e) launches of one grad step."""
     out = _update_checks(device)
     out["iterations"] = _whole_iterations(device)
-    out["time"] = [r for name in ("bench", "ppo_lunarlander")
-                   for r in _update_times(device, name, calls)]
+    out["time"] = [r for name in UPDATE_TIMED for r in _update_times(device, name, calls)]
     if device.type == "cuda":
         out["ptxas"] = _ptxas_report()
         out["grad_step"] = [_step_launches(device, name) for name in ("bench", "ppo_lunarlander")]

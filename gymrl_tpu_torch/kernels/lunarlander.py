@@ -4,7 +4,8 @@
 ``LunarLander.step_from_plain`` computes and ``lander_reset(params, draws)``
 what ``LunarLander.reset_from_plain`` computes, for a batch on a CUDA
 device, each in one launch: the step with a tile of two lanes per env,
-the reset with one thread per env (the launchers pick the grid).
+the reset with one thread per env (the launchers pick the grid), its
+outputs in three allocations (``_reset_outputs``).
 ``LunarLander.step_from`` / ``reset_from`` call them for every CUDA batch;
 a tensor on another device is refused here, before anything is built.
 
@@ -131,13 +132,7 @@ def _expect(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 
 def _launch(fn, tensors, scalars, device: torch.device, what: str) -> None:
-    # The launcher sets ``device`` in its own CUDA runtime; entering it here too
-    # lets PyTorch's runtime restore its current device afterwards.
-    with torch.cuda.device(device):
-        err = fn(*(x.data_ptr() for x in tensors), *scalars, device.index,
-                 torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
+    kernels.launch(fn, [*tensors, *scalars], device, what)
 
 
 def _dt_g(params) -> float:
@@ -204,6 +199,25 @@ def lander_step(params: ll.LunarLanderParams, state: ll.LunarLanderState,
     return StepResult(new_state, obs, reward, terminated, truncated)
 
 
+def _reset_outputs(num: int, dev: torch.device):
+    """The reset's state and obs, uninitialised, in three allocations: one
+    float32 buffer cut into obs, pos, vel, terrain and the four float fields,
+    in that order, so that obs lies on 16 bytes and pos and vel on 8 (the
+    kernel's float4 and float2 stores), one int32 buffer cut into the three
+    counters, and ``leg_contact``. Each field is a contiguous tensor of its
+    own shape; no field's elements overlap another's."""
+    sizes = (8 * num, 2 * num, 2 * num, ll.CHUNKS * num, num, num, num, num)
+    obs, pos, vel, terrain, angle, omega, shaping, sleep_time = torch.empty(
+        sum(sizes), dtype=torch.float32, device=dev).split(sizes)
+    wind_idx, torque_idx, t = torch.empty((3, num), dtype=torch.int32, device=dev)
+    state = ll.LunarLanderState(
+        pos=pos.view(num, 2), vel=vel.view(num, 2), angle=angle, omega=omega,
+        terrain=terrain.view(num, ll.CHUNKS), prev_shaping=shaping, sleep_time=sleep_time,
+        wind_idx=wind_idx, torque_idx=torque_idx,
+        leg_contact=torch.empty((num, 2), dtype=torch.bool, device=dev), t=t)
+    return state, obs.view(num, 8)
+
+
 def lander_reset(params: ll.LunarLanderParams, draws: ll.ResetDraws):
     """A batched reset on the card: ``reset_from_plain``'s ``(state, obs)``,
     with ``pos`` materialised."""
@@ -218,15 +232,7 @@ def lander_reset(params: ll.LunarLanderParams, draws: ll.ResetDraws):
         _expect("torque_idx", draws.torque_idx, i32, (num,), dev),
     ]
 
-    def empty(shape, dtype=f32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    state = ll.LunarLanderState(
-        pos=empty((num, 2)), vel=empty((num, 2)), angle=empty(num), omega=empty(num),
-        terrain=empty((num, ll.CHUNKS)), prev_shaping=empty(num), sleep_time=empty(num),
-        wind_idx=empty(num, i32), torque_idx=empty(num, i32),
-        leg_contact=empty((num, 2), torch.bool), t=empty(num, i32))
-    obs = empty((num, 8))
+    state, obs = _reset_outputs(num, dev)
     if num > 0:
         lib = _library()
         _launch(lib.lander_reset_launch,

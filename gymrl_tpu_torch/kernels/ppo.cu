@@ -29,6 +29,10 @@
 //                  cluster of at most 8 blocks reducing through distributed shared memory,
 //                  no ticket, was 1.6x slower on an H100 at 16,384 rows: 8 SMs, 2 rows a
 //                  thread.)
+//   ppo_loss_bwd   the forward's row in registers, templated the same way, no reduction; its
+//                  own block size (PPO_BWD_THREADS), so the bench's rows fill one wave; the
+//                  rows of logits and dlogits as vectors where A is a power of two and they lie
+//                  on 4 * A bytes (one float4 a row at A = 4, one float2 at A = 2).
 //   grad_sq_norms  16-byte loads where a tensor lies on 16 B, all of a thread's loads in
 //                  flight before it sums; the last block stages every partial in shared memory
 //                  at once, and a warp per tensor sums that tensor's with a shuffle tree.
@@ -66,6 +70,7 @@
 #include <type_traits>
 
 #define THREADS PPO_THREADS
+#define BWD_THREADS PPO_BWD_THREADS
 #define CHUNK PPO_CHUNK
 #define ADAM_CHUNK PPO_ADAM_CHUNK
 #define MAX_TENSORS PPO_MAX_TENSORS
@@ -79,6 +84,7 @@ constexpr int ADAM_VEC = ADAM_CHUNK / (4 * THREADS);  // float4 of each array a 
 
 static_assert(THREADS % 32 == 0 && (WARPS & (WARPS - 1)) == 0 && WARPS <= 32,
               "whole warps, a power of two of them");
+static_assert(BWD_THREADS % 32 == 0, "ppo_loss_bwd's blocks are whole warps");
 static_assert(MAX_ACTIONS == 32, "with_lanes instantiates P = 1, 2, 4, ..., 32");
 static_assert(MAX_TENSORS <= 32, "NormTable::aligned holds a bit per tensor");
 static_assert(CHUNK % (4 * THREADS) == 0, "a chunk is whole float4 loads of every thread");
@@ -267,18 +273,63 @@ __global__ void __launch_bounds__(THREADS) ppo_loss_fwd(HeadIn in, float* out, d
   if (threadIdx.x == 0) head_out(in, s, out);
 }
 
-// The gradient of the loss, times *grad_out, with respect to logits and values; autograd's
-// chain for the plain loss, node by node. One thread per row (its design predates the
-// forward's; it shares the forward's row helper).
+// A row of P floats (A == P) as one vector: a float2 for P = 2, P / 4 float4 from P = 4 up.
+// The row lies on 4 * P bytes (the launcher checks).
 template <int P>
-__global__ void __launch_bounds__(THREADS) ppo_loss_bwd(HeadIn in, const float* grad_out,
-                                                        float* dlogits, float* dvalues) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
+__device__ __forceinline__ void load_row(const float* row, float (&x)[P]) {
+  static_assert(P >= 2, "a row of one float is one scalar");
+  if constexpr (P == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(row);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q) {
+      const float4 v = reinterpret_cast<const float4*>(row)[q];
+      x[4 * q] = v.x;
+      x[4 * q + 1] = v.y;
+      x[4 * q + 2] = v.z;
+      x[4 * q + 3] = v.w;
+    }
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void store_row(float* row, const float (&x)[P]) {
+  static_assert(P >= 2, "a row of one float is one scalar");
+  if constexpr (P == 2) {
+    *reinterpret_cast<float2*>(row) = make_float2(x[0], x[1]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < P / 4; ++q)
+      reinterpret_cast<float4*>(row)[q] =
+          make_float4(x[4 * q], x[4 * q + 1], x[4 * q + 2], x[4 * q + 3]);
+  }
+}
+
+// The gradient of the loss, times *grad_out, with respect to logits and values; autograd's
+// chain for the plain loss, node by node, one row per thread, BWD_THREADS a block (16,384 rows
+// are 128 blocks, about one wave of 132 SMs). As the forward: every loop runs over the constant
+// P with `j < A` guards and the butterfly over log2(P) constant levels, so the row's arrays stay
+// in registers at every P; the gather is a select; PACKED reads the four columns as one float4.
+// ROW_VECTORS (A == P >= 2, both rows on 4 * P bytes) moves the logits and dlogits rows as
+// vectors, else as scalars. Each value keeps the operations, and their order, that autograd's
+// nodes apply (build with -fmad=false). One block an SM at least is all the launch bounds ask:
+// with the thread count alone, ptxas held P = 32 to 80 registers and spilled.
+template <int P, bool PACKED, bool ROW_VECTORS>
+__global__ void __launch_bounds__(BWD_THREADS, 1) ppo_loss_bwd(HeadIn in, const float* grad_out,
+                                                               float* dlogits, float* dvalues) {
+  const int i = blockIdx.x * BWD_THREADS + threadIdx.x;
   if (i >= in.n) return;
   const float g = *grad_out;
+  const int A = in.n_actions;
   float x[P];
-  load_logits<P>(in, i, x);
-  const Cols c = load_cols<false>(in, i);
+  if constexpr (ROW_VECTORS)
+    load_row<P>(in.logits + (long long)i * P, x);
+  else
+    load_logits<P>(in, i, x);
+  const Cols c = load_cols<PACKED>(in, i);
+  const float v = in.values[i];
   RowFwd<P> r;
   row_forward<P>(in, x, c, r);
 
@@ -296,21 +347,33 @@ __global__ void __launch_bounds__(THREADS) ppo_loss_bwd(HeadIn in, const float* 
 
   // entropy: -(sum_j exp(lp_j) * lp_j) per row, its mean times -entropy_coef
   const float g_t = -(((-g) * in.entropy_coef) * in.inv_n);
-  const int A = in.n_actions;
   float p[P], G[P], S[P];
-  for (int j = 0; j < A; ++j) {
-    p[j] = expf(r.lp[j]);
-    G[j] = g_t * p[j] + (g_t * r.lp[j]) * p[j];  // through mul, then through exp
-    if (j == r.a) G[j] = G[j] + g_logp;             // through gather
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    p[j] = j < A ? expf(r.lp[j]) : 0.0f;
+    const float through_exp = g_t * p[j] + (g_t * r.lp[j]) * p[j];  // through mul, then exp
+    G[j] = j < A ? (j == r.a ? through_exp + g_logp : through_exp) : 0.0f;  // through gather
+    S[j] = G[j];
   }
-  for (int j = 0; j < P; ++j) S[j] = j < A ? G[j] : 0.0f;
-  for (int off = P >> 1; off > 0; off >>= 1)
-    for (int l = 0; l < off; ++l) S[l] = S[l] + S[l + off];
-  float* out = dlogits + (long long)i * A;
-  for (int j = 0; j < A; ++j) out[j] = fmaf(-p[j], S[0], G[j]);  // log_softmax's backward
+#pragma unroll
+  for (int level = 0; level < log2_of(P); ++level)  // off = P/2, P/4, ..., 1
+#pragma unroll
+    for (int l = 0; l < P / 2; ++l)
+      if (l < (P >> (level + 1))) S[l] = S[l] + S[l + (P >> (level + 1))];
+  float out[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) out[j] = fmaf(-p[j], S[0], G[j]);  // log_softmax's backward
+  if constexpr (ROW_VECTORS) {
+    store_row<P>(dlogits + (long long)i * P, out);
+  } else {
+    float* row = dlogits + (long long)i * A;
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      if (j < A) row[j] = out[j];
+  }
 
   // value: value_coef * mean((v - ret)^2)
-  const float d = in.values[i] - c.ret;
+  const float d = v - c.ret;
   dvalues[i] = ((g * in.value_coef) * in.inv_n) * (2.0f * d);
 }
 
@@ -531,6 +594,7 @@ __global__ void __launch_bounds__(THREADS) clip_adam(AdamTable t, AdamScalars s)
 }
 
 inline int blocks(int n) { return (n + THREADS - 1) / THREADS; }
+inline int bwd_blocks(int n) { return (n + BWD_THREADS - 1) / BWD_THREADS; }
 
 // chunk_start[0..n] from the tensors' sizes in chunks of `chunk`; returns the number of
 // chunks (blocks).
@@ -574,6 +638,15 @@ bool columns_packed(const HeadIn& in) {
          reinterpret_cast<uintptr_t>(in.action) % 16 == 0 && in.s_action % 4 == 0;
 }
 
+// Whether ppo_loss_bwd may move each row of logits and dlogits as one vector: A is its own
+// padded width (a power of two, at least 2) and both arrays lie on 4 * A bytes, so every row does.
+bool rows_on_vectors(const float* logits, const float* dlogits, int n_actions) {
+  const uintptr_t width = 4u * (unsigned int)n_actions;
+  return n_actions >= 2 && lanes(n_actions) == n_actions &&
+         reinterpret_cast<uintptr_t>(logits) % width == 0 &&
+         reinterpret_cast<uintptr_t>(dlogits) % width == 0;
+}
+
 }  // namespace
 
 // Launchers with a plain C interface (bound with ctypes). Each makes `device`, the card
@@ -606,20 +679,41 @@ extern "C" int ppo_loss_fwd_launch(
   return (int)cudaGetLastError();
 }
 
+// `packed` as for the forward; `row_vectors` asks for the vector row loads and stores, refused
+// (cudaErrorInvalidValue) unless rows_on_vectors holds.
 extern "C" int ppo_loss_bwd_launch(
     const float* logits, const float* values, const float* action, const float* logp_old,
     const float* adv, const float* ret, const float* grad_out, float* dlogits, float* dvalues,
-    int n, int n_actions, int s_action, int s_logp, int s_adv, int s_ret, float lo, float hi,
-    float dual_clip, float value_coef, float entropy_coef, float inv_n, int device,
-    cudaStream_t stream) {
+    int n, int n_actions, int s_action, int s_logp, int s_adv, int s_ret, int packed,
+    int row_vectors, float lo, float hi, float dual_clip, float value_coef, float entropy_coef,
+    float inv_n, int device, cudaStream_t stream) {
   if (n <= 0 || n_actions <= 0 || n_actions > MAX_ACTIONS) return (int)cudaErrorInvalidValue;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return (int)set;
   const HeadIn in{logits, values, action, logp_old, adv, ret, n, n_actions, s_action, s_logp,
                   s_adv, s_ret, lo, hi, dual_clip, value_coef, entropy_coef, inv_n};
+  if (packed && !columns_packed(in)) return (int)cudaErrorInvalidValue;
+  if (row_vectors && !rows_on_vectors(logits, dlogits, n_actions))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
   with_lanes(n_actions, [&](auto p) {
     constexpr int P = decltype(p)::value;
-    ppo_loss_bwd<P><<<blocks(n), THREADS, 0, stream>>>(in, grad_out, dlogits, dvalues);
+    if constexpr (P >= 2) {
+      if (row_vectors) {
+        if (packed)
+          ppo_loss_bwd<P, true, true><<<bwd_blocks(n), BWD_THREADS, 0, stream>>>(
+              in, grad_out, dlogits, dvalues);
+        else
+          ppo_loss_bwd<P, false, true><<<bwd_blocks(n), BWD_THREADS, 0, stream>>>(
+              in, grad_out, dlogits, dvalues);
+        return;
+      }
+    }
+    if (packed)
+      ppo_loss_bwd<P, true, false><<<bwd_blocks(n), BWD_THREADS, 0, stream>>>(in, grad_out,
+                                                                            dlogits, dvalues);
+    else
+      ppo_loss_bwd<P, false, false><<<bwd_blocks(n), BWD_THREADS, 0, stream>>>(in, grad_out,
+                                                                             dlogits, dvalues);
   });
   return (int)cudaGetLastError();
 }

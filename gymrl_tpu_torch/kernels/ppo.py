@@ -51,6 +51,7 @@ from gymrl_tpu_torch.kernels import build
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ppo.cu")
 
 THREADS = 256  # threads per block
+BWD_THREADS = 128  # threads (rows) per block of ppo_loss_bwd: 16,384 rows are 128 blocks
 CHUNK = 2048  # parameters per block of grad_sq_norms
 ADAM_CHUNK = 1024  # parameters per block of clip_adam: one float4 of each array a thread
 MAX_TENSORS = 32  # tensors per multi-tensor launch (their table is a kernel argument)
@@ -61,7 +62,7 @@ METRICS = ("policy_loss", "value_loss", "entropy", "clip_frac", "approx_kl")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The C launchers' parameters in order (``ppo.cu``, ``extern "C"``).
 LOSS_FWD_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P]
-LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 6 + [_F] * 6 + [_I, _P]
+LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F] * 6 + [_I, _P]
 SQ_NORMS_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _P]
 CLIP_ADAM_ARGTYPES = [_P] * 8 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
 
@@ -80,7 +81,8 @@ _ADAM_TABLE: "_AdamTable | None" = None
 
 
 def defines() -> dict[str, str]:
-    return {"PPO_THREADS": str(THREADS), "PPO_CHUNK": str(CHUNK),
+    return {"PPO_THREADS": str(THREADS), "PPO_BWD_THREADS": str(BWD_THREADS),
+            "PPO_CHUNK": str(CHUNK),
             "PPO_ADAM_CHUNK": str(ADAM_CHUNK), "PPO_MAX_TENSORS": str(MAX_TENSORS),
             "PPO_MAX_ACTIONS": str(MAX_ACTIONS)}
 
@@ -112,20 +114,7 @@ def _scratch(device: torch.device, chunks: int) -> tuple[torch.Tensor, torch.Ten
     return held
 
 
-def _launch(fn, args, device: torch.device, what: str) -> None:
-    """``fn(*args, device index, stream)``, each tensor of ``args`` passed as
-    its address; raises on a nonzero ``cudaError_t``."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    if torch.cuda.is_initialized() and torch.cuda.current_device() == device.index:
-        err = fn(*args, device.index, stream)
-    else:
-        # The launcher sets ``device`` in its own CUDA runtime; entering it here
-        # too lets PyTorch's runtime restore its current device afterwards.
-        with torch.cuda.device(device):
-            err = fn(*args, device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{what} launch failed with cudaError_t {err}")
+_launch = kernels.launch
 
 
 def _check_device(x: torch.Tensor, what: str, plain: str) -> None:
@@ -155,9 +144,10 @@ def _f32(x: float) -> float:
 
 def _head_args(logits, values, action, logp_old, adv, returns, cfg,
                what: str) -> tuple[list, list, tuple]:
-    """The loss launchers' arguments before their outputs: the inputs'
+    """The loss launchers' arguments but their outputs: the inputs'
     addresses, checked (the four columns as 1-D views at any stride), their
-    sizes and strides, and the scalars as the plain path rounds them."""
+    sizes, strides and ``columns_packed`` flag, and the scalars as the plain
+    path rounds them."""
     _check_device(logits, what, "algos.ppo.ppo_head_loss_plain")
     dev = logits.device
     if logits.dim() != 2 or not 1 <= logits.shape[1] <= MAX_ACTIONS or logits.shape[0] < 1:
@@ -176,7 +166,7 @@ def _head_args(logits, values, action, logp_old, adv, returns, cfg,
             _f32(1.0 - cfg.clip_eps), _f32(1.0 + cfg.clip_eps), _f32(cfg.dual_clip),
             _f32(cfg.value_coef), _f32(cfg.entropy_coef), _f32(1.0 / n))
     return ([logits.data_ptr(), values.data_ptr(), *(x.data_ptr() for x in columns)],
-            [n, a, *(x.stride(0) for x in columns)], floats)
+            [n, a, *(x.stride(0) for x in columns), int(columns_packed(*columns))], floats)
 
 
 def columns_packed(action, logp_old, adv, returns) -> bool:
@@ -191,54 +181,78 @@ def columns_packed(action, logp_old, adv, returns) -> bool:
             and returns.data_ptr() == p + 12)
 
 
+def row_vectors(logits: torch.Tensor, dlogits: torch.Tensor) -> bool:
+    """Whether ``ppo_loss_bwd`` moves each row of ``logits`` and ``dlogits``
+    ``[n, A]`` as one vector: A is a power of two, at least 2 (the kernel's
+    padded width P equals A; a float2 a row at A = 2, A / 4 float4 from
+    A = 4), and both lie on 4·A bytes, so every row does."""
+    a = logits.shape[1]
+    return (a >= 2 and a & (a - 1) == 0
+            and logits.data_ptr() % (4 * a) == 0 and dlogits.data_ptr() % (4 * a) == 0)
+
+
+def _loss_fwd(dev: torch.device, args: tuple[list, list, tuple]):
+    """The ``ppo_loss_fwd`` launch from ``_head_args``'s ``args``."""
+    ptrs, ints, floats = args
+    out = torch.empty(1 + len(METRICS), dtype=torch.float32, device=dev)
+    n = ints[0]
+    partials, ticket = _scratch(dev, -(-n // THREADS) * len(METRICS)) if n > THREADS else (0, 0)
+    _launch(_library().ppo_loss_fwd_launch,
+            [*ptrs, out.data_ptr(), partials, ticket, *ints, *floats], dev, "ppo_loss_fwd")
+    kernels.LAUNCHES["ppo_loss_fwd"] += 1
+    return out[0], out[1:]
+
+
+def _loss_bwd(logits, values, args: tuple[list, list, tuple], grad_out):
+    """The ``ppo_loss_bwd`` launch from ``_head_args``'s ``args`` (of these
+    ``logits`` and ``values``)."""
+    ptrs, ints, floats = args
+    dlogits = torch.empty_like(logits)
+    dvalues = torch.empty_like(values)
+    _launch(_library().ppo_loss_bwd_launch,
+            [*ptrs, grad_out, dlogits, dvalues, *ints, int(row_vectors(logits, dlogits)),
+             *floats], logits.device, "ppo_loss_bwd")
+    kernels.LAUNCHES["ppo_loss_bwd"] += 1
+    return dlogits, dvalues
+
+
 def ppo_loss_fwd(logits, values, action, logp_old, adv, returns, cfg):
     """``algos.ppo.ppo_head_loss_plain``'s ``(loss f32[], metrics f32[5])``, in one
     launch, both views of one ``f32[6]``. ``action`` is float32, as the packed
     minibatch holds it."""
-    ptrs, ints, floats = _head_args(logits, values, action, logp_old, adv, returns, cfg,
-                                    "ppo_loss_fwd")
-    dev = logits.device
-    out = torch.empty(1 + len(METRICS), dtype=torch.float32, device=dev)
-    packed = int(columns_packed(action, logp_old, adv, returns))
-    n = ints[0]
-    partials, ticket = _scratch(dev, -(-n // THREADS) * len(METRICS)) if n > THREADS else (0, 0)
-    _launch(_library().ppo_loss_fwd_launch,
-            [*ptrs, out.data_ptr(), partials, ticket, *ints, packed, *floats], dev, "ppo_loss_fwd")
-    kernels.LAUNCHES["ppo_loss_fwd"] += 1
-    return out[0], out[1:]
+    return _loss_fwd(logits.device, _head_args(logits, values, action, logp_old, adv, returns,
+                                               cfg, "ppo_loss_fwd"))
 
 
 def ppo_loss_bwd(logits, values, action, logp_old, adv, returns, grad_out, cfg):
     """The gradient of ``ppo_loss_fwd``'s loss times ``grad_out`` (f32[], on
     the card) with respect to ``logits`` and ``values``, in one launch."""
-    ptrs, ints, floats = _head_args(logits, values, action, logp_old, adv, returns, cfg,
-                                    "ppo_loss_bwd")
-    dev = logits.device
-    _expect("grad_out", grad_out, (), dev)
-    dlogits = torch.empty_like(logits)
-    dvalues = torch.empty_like(values)
-    _launch(_library().ppo_loss_bwd_launch, [*ptrs, grad_out, dlogits, dvalues, *ints, *floats],
-            dev, "ppo_loss_bwd")
-    kernels.LAUNCHES["ppo_loss_bwd"] += 1
-    return dlogits, dvalues
+    args = _head_args(logits, values, action, logp_old, adv, returns, cfg, "ppo_loss_bwd")
+    _expect("grad_out", grad_out, (), logits.device)
+    return _loss_bwd(logits, values, args, grad_out)
 
 
 class PPOHeadLoss(torch.autograd.Function):
     """``algos.ppo.ppo_head_loss_plain`` on the card: forward ``ppo_loss_fwd``,
-    backward ``ppo_loss_bwd``. The metrics are not differentiable."""
+    backward ``ppo_loss_bwd``, which launches from the arguments the forward
+    checked and computed. The metrics are not differentiable."""
 
     @staticmethod
     def forward(ctx, logits, values, action, logp_old, adv, returns, cfg):
-        loss, metrics = ppo_loss_fwd(logits, values, action, logp_old, adv, returns, cfg)
+        args = _head_args(logits, values, action, logp_old, adv, returns, cfg, "ppo_loss_fwd")
+        loss, metrics = _loss_fwd(logits.device, args)
         ctx.save_for_backward(logits, values, action, logp_old, adv, returns)
-        ctx.cfg = cfg
+        ctx.args = args
         ctx.mark_non_differentiable(metrics)
         return loss, metrics
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad_loss, grad_metrics):
-        dlogits, dvalues = ppo_loss_bwd(*ctx.saved_tensors, grad_loss.contiguous(), ctx.cfg)
+        # the saved inputs hold the addresses alive, and unpacking them refuses one modified
+        # in place since the forward; autograd hands grad_loss as the loss is: f32[] on the card
+        logits, values, *_ = ctx.saved_tensors
+        dlogits, dvalues = _loss_bwd(logits, values, ctx.args, grad_loss)
         return dlogits, dvalues, None, None, None, None, None
 
 

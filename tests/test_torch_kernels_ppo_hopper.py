@@ -187,28 +187,39 @@ def test_head_scalars_are_rounded_once_per_config_and_rows(lib):
 def test_head_loss_views_carry_autograd_and_an_in_place_metrics_update(monkeypatch):
     """``PPOHeadLoss`` with stand-ins that, as the kernels, return the loss
     and metrics as views of one ``f32[6]``: the loss backpropagates, the
-    metrics do not, and the mesh's in-place mean of the metrics is taken."""
+    metrics do not, and the mesh's in-place mean of the metrics is taken.
+    The backward launches from what the forward's ``_head_args`` returned
+    (here the inputs themselves, which the stand-ins compute from)."""
     from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
 
-    def fwd(logits, values, *cols):
-        loss, metrics = ppo_head_loss_plain(logits, values, *cols)
+    def fwd(dev, args):
+        loss, metrics = ppo_head_loss_plain(*args)
         out = torch.cat([loss.detach().reshape(1), metrics])
         return out[0], out[1:]
 
-    def bwd(logits, values, action, logp_old, adv, returns, grad_out, cfg):
+    def bwd(logits, values, args, grad_out):
         lg, v = logits.detach().requires_grad_(True), values.detach().requires_grad_(True)
         with torch.enable_grad():  # a backward runs without grad
-            loss, _ = ppo_head_loss_plain(lg, v, action, logp_old, adv, returns, cfg)
+            loss, _ = ppo_head_loss_plain(lg, v, *args[2:])
             return torch.autograd.grad(loss * grad_out, (lg, v))
 
-    monkeypatch.setattr(kp, "ppo_loss_fwd", fwd)
-    monkeypatch.setattr(kp, "ppo_loss_bwd", bwd)
+    made = []
+
+    def head_args(*inputs_cfg_what):
+        made.append(inputs_cfg_what[:-1])
+        return made[-1]
+
+    monkeypatch.setattr(kp, "_head_args", head_args)
+    monkeypatch.setattr(kp, "_loss_fwd", fwd)
+    monkeypatch.setattr(kp, "_loss_bwd", lambda logits, values, args, grad_out: (
+        made.append(args), bwd(logits, values, args, grad_out))[1])
     logits, values, rows = _packed_rows(16, 8)
     lg, v = logits.clone().requires_grad_(True), values.clone().requires_grad_(True)
     loss, metrics = kp.PPOHeadLoss.apply(lg, v, *_cols(rows, 8), PPOConfig())
     assert loss.requires_grad and not metrics.requires_grad
     loss.backward()
-    want = bwd(logits, values, *_cols(rows, 8), torch.ones(()), PPOConfig())
+    assert len(made) == 2 and made[1] is made[0]  # one _head_args, its result reused
+    want = bwd(logits, values, (logits, values, *_cols(rows, 8), PPOConfig()), torch.ones(()))
     assert torch.equal(lg.grad, want[0]) and torch.equal(v.grad, want[1])
     metrics.copy_(torch.arange(5.0))  # as Mesh.mean_ writes the averaged metrics back
     assert metrics.tolist() == [0.0, 1.0, 2.0, 3.0, 4.0]
