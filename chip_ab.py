@@ -11,13 +11,14 @@ into it, and run the two trees in turns, parent / change / change / parent:
 It prints the card's name and power limit, then ``chip_smoke.py``'s own
 lines: phase 18 (c) (the lander kernels at 64 and 8192 envs, on the states
 that tree times), phase 19 (d) at the bench's, ``ppo_lunarlander``'s and
-``ppo_cartpole``'s shapes, phase 19 (e) and phase 2's bench; and lines of
-its own: the ms of the loss head's backward through autograd
-(``PPOHeadLoss``) at those three shapes, of one lander ``VecEnv.step``
-(CUDA events over 100 steps from one state) at 64 and 8192 envs, and the
-host ms of allocating a reset's outputs as twelve tensors and, where the
-tree has it, as ``kernels.lunarlander._reset_outputs`` cuts them from
-three. It needs a CUDA device.
+``ppo_cartpole``'s shapes, phase 19 (e), phase 2's bench and phase 17's
+profile; and lines of its own: the ms of the loss head's backward through
+autograd (``PPOHeadLoss``) at those three shapes, of one lander
+``VecEnv.step`` (CUDA events over 100 steps from one state) at 64 and 8192
+envs, the host ms of allocating a reset's outputs as twelve tensors and,
+where the tree has it, as ``kernels.lunarlander._reset_outputs`` cuts them
+from three, and last a summary: phase 2's SGD ms and env-steps/s and phase
+17's busy share of each case. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -50,7 +51,12 @@ def main() -> int:
     for num in (64, 8192):
         cs.log("ab VecEnv.step: " + json.dumps(vecenv_step_ms(device, num)))
         cs.log("ab reset outputs: " + json.dumps(reset_alloc_ms(device, num)))
-    cs.phase_bench(device)
+    bench = cs.phase_bench(device)
+    profile = cs.phase_profile(device)
+    cs.log("ab summary: " + json.dumps({
+        "sgd_ms": bench["phase_ms"]["sgd"], "env_steps_per_s": bench["env_steps_per_s"],
+        "busy_share_untraced": {r["case"]: r["busy_share_untraced"] for r in profile},
+        "launches_per_iter": {r["case"]: r["launches_per_iter"] for r in profile}}))
     return 0
 
 

@@ -21,15 +21,18 @@ only if all of them pass.
      termination flags (a contact test that ties within float32 rounding
      on one side only).
   2. Bench config (``gymrl_tpu_torch.bench``: B=8192, T=64, 4 epochs of
-     minibatch 16384, flat optimizer, bf16 SGD): one warm-up ``train_iter``
+     minibatch 16384, flat optimizer, bf16 SGD): two warm-up ``train_iter``s
      and three timed ones. Prints env-steps/s, each phase's time from CUDA
      events (rollout; next-value forward plus GAE; SGD) and the peak device
      memory, and checks the step count, finite metrics, moved params and
-     Adam's step count.
+     Adam's step count. The SGD sweep is the graph path's (phase 20): the
+     first warm-up eager, the second a capture and its replay, the timed
+     ones replays; the captures and replays are printed and checked.
   3. Entry point: the CLI's ``ppo_lunarlander`` workload through
      ``TrainLoop`` for three iterations with its checkpoint in a temporary
      directory, then ``TrainLoop.test`` (five deterministic episodes), then
-     a restore of the saved checkpoint into a fresh state.
+     a restore of the saved checkpoint into a fresh state; its sweep graph's
+     one capture and two replays printed and checked.
   4. Classic envs: B=8192 CartPole, Pendulum and continuous-lander states,
      made on the CPU from a fixed seed, stepped once on the card and once
      on the CPU with the same actions and draws. Each state field and the
@@ -205,11 +208,12 @@ only if all of them pass.
      mesh, each case's largest errors beside their bounds and the sharded
      and unsharded wall times (the card's own, not a claim).
  17. Profile: one bench-config and one ``ppo_lunarlander`` iteration under
-     ``utils.profiling.trace`` (a Chrome trace on disk): CUDA kernel
-     launches per iteration, summed kernel time and the busy share (the
-     union of kernel intervals over the iteration's wall time, traced and
-     untraced); ``Throughput`` over two untraced bench iterations must read
-     within 10% of the wall-clock rate.
+     ``utils.profiling.trace`` (a Chrome trace on disk), after a warm-up
+     and the iteration that captures the sweep, so the traced one replays
+     it: CUDA kernel launches per iteration, summed kernel time and the
+     busy share (the union of kernel intervals over the iteration's wall
+     time, traced and untraced); ``Throughput`` over two untraced bench
+     iterations must read within 10% of the wall-clock rate.
  18. The lander kernels (``gymrl_tpu_torch/kernels/lunarlander.cu``)
      against the plain path on the card, from the same inputs, at every
      batch the main path gives them (32, 64 and 8192 envs: the lander CLI
@@ -247,7 +251,8 @@ only if all of them pass.
   before them, and fail unless both lander kernels launched in them; phases
   2 and 3 (``PPOTrainer``) also unless each of PPO's four update kernels
   launched once per grad step (128 per bench iteration, 320 per
-  ``ppo_lunarlander`` iteration). ``phase_kernels_each_card`` (not in
+  ``ppo_lunarlander`` iteration; a replay of the sweep's graph counts the
+  launches its capture recorded). ``phase_kernels_each_card`` (not in
   ``main``, which needs one card) runs 18 (a)-(b) and 19 (a)-(b) on every
   other card of a machine with more, and fails unless PyTorch's current
   device stays on the first.
@@ -311,6 +316,28 @@ only if all of them pass.
      kernels and on the plain versions, at both shapes, and the host time of
      its parts (forward, head, backward, clip with Adam) by the host clock,
      from timing shims patched around the step's head and update.
+ 20. The SGD sweep as one CUDA graph (``algos.base.SweepGraph``) against the
+     eager sweep. (a) One ``clip_adam`` launch of the ctypes library (its
+     own CUDA runtime, linked statically) captured on a side stream with
+     its step terms on the card (``kernels.ppo.device_terms``) and replayed
+     twice: the capture runs nothing, the replays equal two eager launches
+     to the bit. (b) The bench config, ``ppo_lunarlander`` and
+     ``ppo_cartpole``, 3 iterations each from ``init(0)`` with ``graphs``
+     off and on (the warm-up, the capture with its replay, a replay): every
+     state entry (params, ``exp_avg``, ``exp_avg_sq``, the step counts, the
+     env batch, the noise) and every metric equal to the bit, else params
+     and moments within ``ADAM_TOL`` and metrics within ``HEAD_RTOL`` with
+     all else equal (whether equal to the bit is printed); each update
+     kernel once per grad step on both paths, counted per replay on the
+     graph; one capture and two replays. Each path's SGD ms (CUDA events),
+     env-steps/s, launches per grad step (one sweep traced) and peak memory.
+     (c) On ``ppo_lunarlander`` both paths also save a checkpoint after
+     iteration 2 and, after iteration 3, restore it into ``init(1)`` and run
+     one more iteration: the graph path captures anew and the two still
+     agree under (b)'s rule.
+  ``phase_solve`` (not in ``main``) trains ``ppo_lunarlander`` on the graph
+  path through ``TrainLoop.train(..., seed=s)`` for seeds 0-2 to avg100 ≥
+  200 and prints the env steps each took.
 
 The line before the last is the kernel list: each kernel's launches in
 phase 2 (the bench config), its largest error against the plain path in
@@ -335,6 +362,7 @@ PHYS_WARM_STEPS = 90  # random-action steps until ~40% of landers touch the grou
 PHYS_ATOL = 1e-4
 PHYS_MAX_TIES = 8
 BENCH_TIMED_ITERS = 3
+BENCH_WARM_ITERS = 2  # the warm-up and the sweep's capture, as bench.py warms up
 ENTRY_ITERS = 3
 CLASSIC_ENVS = 8192
 CLASSIC_WARM_STEPS = 40
@@ -470,10 +498,12 @@ def phase_bench(device: torch.device, cfg=None, timed_iters: int = BENCH_TIMED_I
     ts = trainer.init(0)
     initial = {k: v.detach().clone() for k, v in ts.params.state_dict().items()}
 
-    ts, _ = trainer.train_iter(ts)  # warm-up
+    for _ in range(BENCH_WARM_ITERS):
+        ts, _ = trainer.train_iter(ts)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    base_bytes = torch.cuda.memory_allocated(device) if cuda else None
 
     clock = PhaseClock(device)
     phases, walls = [], []
@@ -493,11 +523,14 @@ def phase_bench(device: torch.device, cfg=None, timed_iters: int = BENCH_TIMED_I
         "iter_wall_ms": [w * 1e3 for w in walls],
         "phase_ms": {p: [ph[p] for ph in phases] for p in ("rollout", "gae", "sgd")},
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if cuda else None,
+        "base_bytes": base_bytes,
+        "peak_reserved_bytes": torch.cuda.max_memory_reserved(device) if cuda else None,
         "metrics": {k: float(v) for k, v in out.metrics.items()},
+        "sweep_graph": _sweep_graph_counts("phase 2", trainer, timed_iters + BENCH_WARM_ITERS),
     }
     log("phase 2 bench config: " + json.dumps(result))
 
-    iters = timed_iters + 1
+    iters = timed_iters + BENCH_WARM_ITERS
     if ts.env_steps != iters * cfg.batch_total:
         raise AssertionError(f"env_steps {ts.env_steps} != {iters} x {cfg.batch_total}")
     if not all(math.isfinite(v) for v in result["metrics"].values()):
@@ -547,7 +580,8 @@ def phase_entry(device: torch.device, iters: int = ENTRY_ITERS, episodes: int = 
     if restored.env_steps != ts.env_steps:
         raise AssertionError("restored env_steps differ")
     result = {"env_steps": stats["env_steps"], "train_s": train_s, "test_episodes": episodes,
-              "test_mean_reward": mean_reward, "test_s": test_s, "checkpoint_restored": True}
+              "test_mean_reward": mean_reward, "test_s": test_s, "checkpoint_restored": True,
+              "sweep_graph": _sweep_graph_counts("phase 3", trainer, iters)}
     log("phase 3 entry point: " + json.dumps(result))
     return result
 
@@ -2628,6 +2662,7 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
     for name in cases:
         trainer = _dist_trainer(name, device)
         ts, _, _ = _timed_iter(trainer, trainer.init(0))  # warm-up
+        ts, _, _ = _timed_iter(trainer, ts)  # the sweep's capture, so the trace holds a replay
         with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
             with trace(tmp, device) as prof:
@@ -2658,6 +2693,7 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
                   "kernel_stats_s": stats_s}
         if n > 1:
             result.update(throughput_rate=meter.rate, wall_rate=wall_rate)
+        result["sweep_graph"] = _sweep_graph_counts(f"phase 17 {name}", trainer, n + 3)
         log("phase 17 profile: " + json.dumps(result))
         if stats["kernels"] == 0 or trace_bytes == 0:
             raise AssertionError(f"{name}: the trace holds no kernel")
@@ -3827,6 +3863,257 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
     return out
 
 
+# -- phase 20: the captured sweep against the eager sweep ------------------------------
+GRAPH_CASES = ("bench", "ppo_lunarlander", "ppo_cartpole")
+GRAPH_ITERS = 3  # the warm-up, the capture with its replay, one more replay
+GRAPH_RESTORE_CASE = "ppo_lunarlander"  # saved after iteration 2, restored after GRAPH_ITERS
+
+
+def _sweep_graph_counts(label: str, trainer, iters: int) -> dict:
+    """The captures and replays of ``trainer``'s SGD sweep graph, logged; on
+    the graph path, ``iters`` iterations from a fresh trainer must be the
+    warm-up, one capture and ``iters - 1`` replays."""
+    graph = trainer.sweep_graph
+    counts = {"captures": graph.captures if graph else 0, "replays": graph.replays if graph else 0}
+    log(f"{label} sweep graph: " + json.dumps(counts))
+    if trainer._graphed() and counts != {"captures": 1, "replays": iters - 1}:
+        raise AssertionError(f"{label}: {iters} iterations, but the sweep graph {counts}")
+    return counts
+
+
+def _graph_probe(device: torch.device) -> dict:
+    """Phase 20 (a): one ``clip_adam`` launch of the ctypes library, whose
+    CUDA runtime is its own (linked statically), captured into a
+    ``torch.cuda.CUDAGraph`` on a side stream and replayed twice, against two
+    eager launches from copies of the same params and Adam state. The
+    capture must run nothing (the params untouched until the first replay)
+    and the replays must give the eager launches' bits."""
+    from gymrl_tpu_torch.algos.base import adam
+    from gymrl_tpu_torch.kernels import ppo as kp
+
+    gen = torch.Generator().manual_seed(0)
+    sizes = (4099, 256, 7, 65536)
+    init = [torch.randn(n, generator=gen) for n in sizes]
+    grads = [torch.randn(n, generator=gen).to(device) for n in sizes]
+
+    def fresh():
+        ps = [torch.nn.Parameter(x.to(device)) for x in init]
+        return ps, adam(ps, 3e-4, 1e-5, foreach=True)
+
+    eager_ps, eager_opt = fresh()
+    graph_ps, graph_opt = fresh()
+    sq = kp.grad_sq_norms(grads)
+    for _ in range(2):
+        kp.clip_adam(eager_opt, grads, sq, 0.5)
+    terms = torch.empty((1, 2), dtype=torch.float32, device=device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream), kp.device_terms(terms) as run:
+        graph.capture_begin()
+        try:
+            kp.clip_adam(graph_opt, grads, sq, 0.5)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    torch.cuda.synchronize(device)
+    untouched = all(torch.equal(p.detach().cpu(), x) for p, x in zip(graph_ps, init))
+    for _ in range(2):
+        pairs, count = kp.adam_run_terms(graph_opt, 1)
+        terms.copy_(torch.from_numpy(pairs))
+        graph.replay()
+        for state in graph_opt.state.values():
+            state["step"].fill_(count)
+    torch.cuda.synchronize(device)
+    equal = {name: all(torch.equal(a, b) for a, b in zip(
+        *(([p.detach() for p in ps] if name == "params" else [opt.state[p][name] for p in ps])
+          for ps, opt in ((eager_ps, eager_opt), (graph_ps, graph_opt)))))
+        for name in ("params", "exp_avg", "exp_avg_sq")}
+    steps = sorted({float(s["step"]) for s in graph_opt.state.values()})
+    result = {"capture_ran_nothing": untouched, "pairs_taken": run.taken, "equal": equal,
+              "steps": steps}
+    log("phase 20a capture probe: " + json.dumps(result))
+    if not untouched or not all(equal.values()) or steps != [2.0] or run.taken != 1:
+        raise AssertionError(f"phase 20a: the captured clip_adam launch {result}")
+    return result
+
+
+def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
+               restore: bool) -> dict:
+    """``iters`` iterations of case ``name`` from ``init(0)`` with
+    ``trainer.graphs = graphs``: each iteration's wall time, SGD ms (CUDA
+    events), metrics and launches, the peak memory, the state on the CPU;
+    then one sweep under ``trace`` (kernel launches per grad step). With
+    ``restore``, the state is saved after iteration 2 and, after the
+    iterations, restored into ``init(1)`` for one more iteration."""
+    from unittest import mock
+
+    from gymrl_tpu_torch import kernels
+    from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
+
+    cuda = device.type == "cuda"
+    trainer = _dist_trainer(name, device)
+    trainer.graphs = graphs
+    cfg = trainer.cfg
+    grad_steps = cfg.num_epochs * cfg.num_minibatches
+    ts = trainer.init(0)
+    seen, sgd = [], trainer._sgd
+    clock = PhaseClock(device)
+    out = {"case": name, "graphs": graphs, "grad_steps": grad_steps, "wall_ms": [], "sgd_ms": [],
+           "launches": [], "metrics": []}
+    _sync(device)
+    if cuda:
+        torch.cuda.empty_cache()  # the reserved peak then counts this run's segments
+        torch.cuda.reset_peak_memory_stats(device)
+    out["base_bytes"] = torch.cuda.memory_allocated(device) if cuda else None
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
+            trainer, "_sgd", lambda t, packed, perms: seen.append((packed, perms))
+            or sgd(t, packed, perms)):
+        path = os.path.join(tmp, "ckpt.pt")
+        for it in range(iters + int(restore)):
+            if restore and it == iters:
+                ts = restore_checkpoint(path, trainer.init(1))
+            seen.clear()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            clock.start()
+            ts, result = trainer.train_iter(ts, timer=clock.mark)
+            _sync(device)
+            out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
+            out["sgd_ms"].append(clock.phase_ms()["sgd"])
+            out["launches"].append({k: kernels.LAUNCHES[k] for k in UPDATE_KERNELS})
+            out["metrics"].append({k: float(v) for k, v in result.metrics.items()})
+            if restore and it == 1:
+                save_checkpoint(path, ts)
+            if it == iters - 1:
+                out["state"] = _cpu_flat(ts)
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else None
+        # the caching allocator's segments, the graph's private pool among them
+        out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(device) if cuda else None
+        out["env_steps_per_s"] = cfg.batch_total / out["wall_ms"][iters - 1] * 1e3
+        if restore:
+            out["restored_state"] = _cpu_flat(ts)
+        held = trainer.sweep_graph
+        out["sweep_graph"] = {"captures": held.captures if held else 0,
+                              "replays": held.replays if held else 0}
+        packed, perms = seen[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device) as prof:
+            trainer._sgd(ts, packed, perms)
+            _sync(device)
+    out["launches_per_grad_step"] = kernel_stats(prof)["kernels"] / grad_steps
+    del prof, trainer, ts, seen, packed, perms
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def _graph_diff(eager: dict, graph: dict) -> dict:
+    """The graph path's state against the eager path's: the entries that
+    differ, and for params, ``exp_avg`` and ``exp_avg_sq`` the largest
+    difference (params absolute, moments of each tensor's largest entry),
+    as phase 19 (b) bounds them."""
+    differ = [k for k in eager if not (torch.equal(eager[k], graph[k])
+                                       if isinstance(eager[k], torch.Tensor)
+                                       else eager[k] == graph[k])]
+    errs = {"params": 0.0, "exp_avg": 0.0, "exp_avg_sq": 0.0}
+    for k in differ:
+        kind = ("params" if k.startswith("ts.params.") else
+                k.rsplit(".", 1)[-1] if k.endswith((".exp_avg", ".exp_avg_sq")) else None)
+        if kind is None:
+            continue
+        a, b = eager[k].double(), graph[k].double()
+        err = float((a - b).abs().max())
+        errs[kind] = max(errs[kind], err if kind == "params" else
+                         err / max(float(a.abs().max()), 1e-30))
+    return {"differ": differ, "max_err": errs}
+
+
+def phase_graph(device: torch.device, cases=GRAPH_CASES, iters: int = GRAPH_ITERS,
+                restore_case: str = GRAPH_RESTORE_CASE) -> dict:
+    """Phase 20: (a) the capture probe; (b) per case, ``iters`` iterations
+    on the eager sweep and on the captured one from the same init and noise
+    (the graph path's warm-up, capture with replay, replay): every state
+    entry, the metrics and Adam's step counts equal to the bit, or params
+    and moments within phase 19 (b)'s ``ADAM_TOL`` and metrics within
+    ``HEAD_RTOL`` with all else equal; one launch of each update kernel per
+    grad step on both, per replay on the graph; each path's SGD ms,
+    env-steps/s, launches per grad step (profiler) and peak memory; (c) on
+    ``restore_case``, a checkpoint saved mid-run restored into a fresh state
+    captures anew and still matches the eager path restored the same way."""
+    cuda = device.type == "cuda"
+    result = {"probe": _graph_probe(device) if cuda else None, "cases": []}
+    for name in cases:
+        restore = name == restore_case
+        eager = _graph_run(device, name, False, iters, restore)
+        graph = _graph_run(device, name, True, iters, restore)
+        checks = {"iterations": _graph_diff(eager.pop("state"), graph.pop("state"))}
+        if restore:
+            checks["restored"] = _graph_diff(eager.pop("restored_state"),
+                                             graph.pop("restored_state"))
+        metric_err = max(abs(a - b) / max(abs(a), 1e-30) for ea, ga in
+                         zip(eager["metrics"], graph["metrics"]) for a, b in
+                         ((ea[k], ga[k]) for k in ea))
+        row = {"case": name, "checks": checks, "metrics_rel_err": metric_err,
+               "bit_equal": metric_err == 0.0 and not any(c["differ"] for c in checks.values()),
+               **{path: {k: r[k] for k in ("wall_ms", "sgd_ms", "env_steps_per_s",
+                                           "launches_per_grad_step", "peak_memory_bytes",
+                                           "peak_reserved_bytes", "base_bytes", "sweep_graph",
+                                           "launches")}
+                  for path, r in (("eager", eager), ("graph", graph))}}
+        log("phase 20b sweep graph: " + json.dumps(row))
+        for path, r in (("eager", eager), ("graph", graph)):
+            for counts in r["launches"] if cuda else ():
+                _check_update_launches(f"phase 20 {name} {path}", counts, r["grad_steps"])
+        want = ({"captures": 2 if restore else 1, "replays": iters - 1 + int(restore)} if cuda
+                else {"captures": 0, "replays": 0})  # the CPU (a rehearsal) sweeps eagerly
+        if graph["sweep_graph"] != want or eager["sweep_graph"] != {"captures": 0, "replays": 0}:
+            raise AssertionError(f"phase 20 {name}: sweep graphs {graph['sweep_graph']} "
+                                 f"(want {want}), eager {eager['sweep_graph']}")
+        for label, c in checks.items():
+            exact = [k for k in c["differ"] if not k.startswith("ts.params.")
+                     and not k.endswith((".exp_avg", ".exp_avg_sq"))]
+            if exact or max(c["max_err"].values()) > ADAM_TOL or metric_err > HEAD_RTOL:
+                raise AssertionError(f"phase 20 {name} {label}: the captured sweep differs: "
+                                     f"{exact[:8]}, {c['max_err']}, metrics {metric_err}")
+        result["cases"].append(row)
+    return result
+
+
+def phase_solve(device: torch.device | None = None, seeds=(0, 1, 2),
+                max_env_steps: int = 600_000) -> list[dict]:
+    """The main path's solve check (not in ``main``): ``ppo_lunarlander``'s
+    CLI config through ``TrainLoop.train(..., seed=s)`` on the card, the
+    sweep as a CUDA graph, until avg100 >= 200 or ``max_env_steps``; the
+    env steps it took per seed."""
+    from gymrl_tpu_torch.run import cli
+    from gymrl_tpu_torch.run.loop import TrainLoop
+
+    device = device or torch.device("cuda")
+    out = []
+    cwd = os.getcwd()
+    for seed in seeds:
+        trainer, algo, solve = cli.WORKLOADS["ppo_lunarlander"](str(device))
+        with tempfile.TemporaryDirectory() as tmp:
+            os.chdir(tmp)
+            try:
+                loop = TrainLoop(trainer, algo, log_metrics=False, log_every=10 ** 9)
+                t0 = time.perf_counter()
+                _, stats = loop.train(max_env_steps, solve_threshold=solve, seed=seed)
+            finally:
+                os.chdir(cwd)
+        r = {"seed": seed, "solved": stats["solved"], "env_steps": stats["env_steps"],
+             "avg100": stats["avg100"], "episodes": stats["episodes"],
+             "wall_s": time.perf_counter() - t0,
+             "graph": {"captures": trainer.sweep_graph.captures,
+                       "replays": trainer.sweep_graph.replays}}
+        log("solve: " + json.dumps(r))
+        out.append(r)
+    return out
+
+
 def kernel_line(counts: dict, phase18: dict, phase19: dict) -> dict:
     """The kernels line: each kernel's launches on the main path (the bench
     config), its largest error against the plain path, and its times and
@@ -3893,7 +4180,8 @@ def main() -> int:
                          names=LANDER_KERNELS + UPDATE_KERNELS)  # its first grad step builds ppo.cu
     log("build_s: " + json.dumps(build.BUILD_SECONDS))
     bench_steps = BENCH_CONFIG.num_epochs * BENCH_CONFIG.num_minibatches
-    _check_update_launches("phase 2", main_path, (BENCH_TIMED_ITERS + 1) * bench_steps)
+    _check_update_launches("phase 2", main_path,
+                           (BENCH_TIMED_ITERS + BENCH_WARM_ITERS) * bench_steps)
     _, entry = timed(3, _on_kernels, "phase 3", phase_entry, device,
                      names=LANDER_KERNELS + UPDATE_KERNELS)
     cli_cfg = cli.WORKLOADS["ppo_lunarlander"]("cpu")[0].cfg
@@ -3928,6 +4216,7 @@ def main() -> int:
     timed(17, phase_profile, device)
     phase18 = timed(18, phase_kernels, device)
     phase19 = timed(19, phase_update_kernels, device)
+    timed(20, phase_graph, device)
     log("phase_s: " + json.dumps(phase_s))
     log(f"total_s: {time.perf_counter() - t_start:.1f}")
     log(json.dumps(kernel_line(main_path, phase18, phase19)))

@@ -6,9 +6,14 @@ A ``Trainer`` exposes:
   * ``train_iter(ts) -> (ts, IterOut)`` — one iteration of the algorithm
   * ``policy(ts, obs, noise, deterministic) -> action`` — batched, for eval
 
-The JAX trainers are pure and jitted; here ``train_iter`` runs eagerly and
-updates the parameters and optimizer held by ``ts`` in place (PyTorch's
-idiom), returning the state with its new env batch and counters.
+The JAX trainers are pure and jitted; here ``train_iter`` updates the
+parameters and optimizer held by ``ts`` in place (PyTorch's idiom),
+returning the state with its new env batch and counters. It runs eagerly,
+but for one part: on a CUDA device without a mesh, while ``trainer.graphs``
+is True (the default), ``PPOTrainer``'s SGD sweep is one replay of a
+captured CUDA graph (``SweepGraph``), the counterpart of the JAX trainer's
+jitted epoch × minibatch scan. The rollout, everything under a mesh, the CPU
+and the other trainers' updates run eagerly.
 
 Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
 env batch and computes its share of every minibatch. A rank's loss is its
@@ -19,12 +24,14 @@ the optimizer step, which then run replicated.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch import nn
 
+from gymrl_tpu_torch import kernels
 from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
 from gymrl_tpu_torch.distributed.mesh import constrain_batch, gather_pytree_batch
 from gymrl_tpu_torch.kernels import ppo as ppo_kernels
@@ -227,6 +234,144 @@ def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
     return opt
 
 
+def graph_key(net: nn.Module, opt: torch.optim.Adam) -> tuple[tuple, tuple]:
+    """What a captured sweep of ``net`` and its Adam ``opt`` reads and writes
+    outside its own pool and buffers: ``kernels.ppo.adam_key`` (Adam's state
+    and group by identity, the options but the lr, the addresses of params,
+    ``exp_avg`` and ``exp_avg_sq``, the step tensors) and each of the net's
+    params by name, address and size. With it, the objects the key names by
+    identity, to be held while the key is."""
+    key, holds = ppo_kernels.adam_key(opt)
+    params = tuple((n, p.data_ptr(), p.numel()) for n, p in net.named_parameters())
+    return (key, params), (*holds, list(net.parameters()))
+
+
+class SweepGraph:
+    """One iteration's SGD sweep as ONE replay of a captured CUDA graph: the
+    port's counterpart of the jit cache of the JAX ``Trainer.train_iter``
+    (``gymrl_tpu/algos/base.py``), whose executable runs the whole epoch ×
+    minibatch scan. The kernels and their order are the eager sweep's; only
+    who issues the launches changes.
+
+    ``run(net, opt, body, inputs)`` copies ``inputs`` into the holder's
+    static buffers and runs ``body(static)``, the eager sweep of ``steps``
+    Adam steps of ``opt`` on ``net``, returning one tensor:
+      * the first run is a warm-up: ``body`` runs eagerly on the side stream
+        that captures later, so what PyTorch and the kernels make lazily per
+        stream (cuBLAS's workspace, the reductions' scratch) exists before
+        any capture;
+      * a run whose ``graph_key`` differs from the captured one (a restore's
+        ``load_state_dict`` replaces Adam's state) captures ``body`` anew on
+        that stream, never replaying a stale graph, then replays it; later
+        runs replay it. A failed capture raises.
+    Capture records the launches and runs none, so the host effects of the
+    body are kept out of it or taken back, and applied once per replay:
+      * Adam's CPU step counts: under ``kernels.ppo.device_terms`` grad step
+        i's ``clip_adam`` reads its ``(step_size, bc2)`` from row i of a
+        buffer on the card and counts nothing; before each replay the rows
+        come from ``kernels.ppo.adam_run_terms`` through pinned memory, and
+        after it the counts are set where ``steps`` more leave them;
+      * ``kernels.LAUNCHES``: the capture's increments are taken back, and
+        each replay adds them;
+      * ``opt.zero_grad(set_to_none=True)``: every step's backward makes its
+        grads in the graph's pool; after a replay ``p.grad`` is the last
+        step's, as after the eager sweep.
+    The returned tensor is a copy: the next replay overwrites the graph's.
+    """
+
+    def __init__(self, device: torch.device, steps: int):
+        self.device, self.steps = device, steps
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.static: dict[str, torch.Tensor] = {}
+        self.terms = torch.empty((steps, 2), dtype=torch.float32, device=device)
+        self.host_terms = torch.empty((steps, 2), dtype=torch.float32, pin_memory=self.cuda)
+        self.copied = None  # the event after the last copy out of host_terms
+        self.warm = False
+        self.graph = self.out = self.key = self.holds = None
+        self.launches: dict[str, int] = {}
+        self.grads: list[torch.Tensor] = []
+        self.captures = self.replays = 0
+
+    def run(self, net: nn.Module, opt: torch.optim.Adam,
+            body: Callable[[dict[str, torch.Tensor]], torch.Tensor],
+            inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+        for name, x in inputs.items():
+            held = self.static.get(name)
+            if held is None or held.shape != x.shape or held.dtype != x.dtype:
+                held = self.static[name] = torch.empty_like(x)
+                self.graph = None  # it reads the buffer this one replaces
+            held.copy_(x)
+        if not self.warm:
+            with self._side():
+                out = body(self.static)
+            self._join()
+            if self.cuda:  # made on the side stream: kept from its pool while the current reads it
+                out.record_stream(torch.cuda.current_stream(self.device))
+            self.warm = True
+            return out
+        key, holds = graph_key(net, opt)
+        if self.graph is None or key != self.key:
+            self.graph = self.out = None  # its pool goes with its last tensors
+            self._capture(net, opt, body)
+            self.key, self.holds = key, holds
+        return self._replay(net, opt)
+
+    def _side(self):
+        """The side stream as the current one, after the work queued so far."""
+        if not self.cuda:
+            return contextlib.nullcontext()
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        return torch.cuda.stream(self.stream)
+
+    def _join(self) -> None:
+        """The current stream after the side stream's work."""
+        if self.cuda:
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def _capture(self, net: nn.Module, opt: torch.optim.Adam, body) -> None:
+        opt.zero_grad(set_to_none=True)  # each backward makes its grads in the graph's pool
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(kernels.LAUNCHES)
+        try:
+            with self._side(), ppo_kernels.device_terms(self.terms) as run:
+                graph.capture_begin()
+                try:
+                    out = body(self.static)
+                finally:
+                    graph.capture_end()
+        finally:
+            self.launches = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
+            kernels.LAUNCHES.update(before)
+        self._join()
+        if run.taken != self.steps:
+            raise RuntimeError(f"the captured sweep stepped Adam {run.taken} times on the "
+                               f"step terms, not {self.steps}")
+        self.graph, self.out = graph, out
+        self.grads = [p.grad for p in net.parameters()]
+        self.captures += 1
+
+    def _replay(self, net: nn.Module, opt: torch.optim.Adam) -> torch.Tensor:
+        terms, count = ppo_kernels.adam_run_terms(opt, self.steps)
+        if self.copied is not None:
+            self.copied.synchronize()  # the last replay's copy has read the pinned rows
+        self.host_terms.copy_(torch.from_numpy(terms))
+        self.terms.copy_(self.host_terms, non_blocking=self.cuda)
+        if self.cuda:
+            self.copied = torch.cuda.Event()
+            self.copied.record()
+        self.graph.replay()
+        for state in opt.state.values():
+            state["step"].fill_(count)
+        kernels.add_launches(self.launches)
+        for p, g in zip(net.parameters(), self.grads):
+            p.grad = g
+        self.replays += 1
+        return self.out.clone()
+
+
 def assert_flat_tp_ok(mesh) -> None:
     """The flat-optimizer guard of every PPO-family trainer: one Adam over
     every tensor as one multi-tensor update cannot hold ``model`` splits
@@ -246,6 +391,14 @@ class Trainer:
         self.device = resolve_device(device if mesh is None else mesh.device_for(device))
         n = getattr(cfg, "num_envs", None)
         self.local_envs = n if mesh is None else mesh.local_count(n, "num_envs")
+        # Whether a trainer that captures its SGD sweep (PPOTrainer, on a CUDA
+        # device without a mesh) replays it as a CUDA graph (SweepGraph); False
+        # runs it eagerly. The counterpart of the JAX Trainer's ``donate``.
+        self.graphs = True
+
+    def _graphed(self) -> bool:
+        """Whether the SGD sweep runs as a CUDA graph here."""
+        return self.graphs and self.device.type == "cuda" and self.mesh is None
 
     # -- the mesh's hooks: identities without one -------------------------------
     def _noise(self, seed: int):

@@ -40,7 +40,7 @@ from torch import nn
 from torch.func import functional_call
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, clip_adam_,
+    IterOut, PhaseTimer, SweepGraph, Trainer, adam, assert_flat_tp_ok, clip_adam_,
 )
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -91,7 +91,9 @@ class PPOConfig:
     # same math, fewer and wider kernels. Off: one update per tensor.
     flat_optimizer: bool = False
     # XLA scan-unroll knobs of the reference. Accepted so configs carry over;
-    # they change nothing here (the loops are Python loops).
+    # they change nothing here: on a CUDA device without a mesh the whole SGD
+    # sweep is one CUDA graph (``trainer.graphs``, ``algos.base.SweepGraph``),
+    # and the rollout, and the sweep under a mesh or on the CPU, are Python loops.
     sgd_unroll: int = 1
     rollout_unroll: int = 1
 
@@ -268,6 +270,7 @@ class PPOTrainer(Trainer):
         self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
+        self.sweep_graph: SweepGraph | None = None  # made at the first sweep it runs
 
     # -- API ------------------------------------------------------------------
     def init(self, seed: int = 0) -> PPOTrainState:
@@ -420,7 +423,25 @@ class PPOTrainer(Trainer):
 
     def _sgd(self, ts: PPOTrainState, packed: torch.Tensor, perms: torch.Tensor):
         """Epochs of shuffled minibatches; returns metrics averaged over all
-        gradient steps."""
+        gradient steps. On a CUDA device without a mesh, while ``graphs``
+        is on, the sweep is one replay of a captured CUDA graph
+        (``SweepGraph``; its first run is the eager warm-up); else eager."""
+        if not self._graphed():
+            means = self._sweep(ts, packed, perms)
+        else:
+            cfg = self.cfg
+            if self.sweep_graph is None:
+                self.sweep_graph = SweepGraph(self.device, cfg.num_epochs * cfg.num_minibatches)
+            means = self.sweep_graph.run(
+                ts.params, ts.opt_state,
+                lambda static: self._sweep(ts, static["packed"], static["perms"]),
+                {"packed": packed, "perms": perms})
+        return dict(zip(METRICS, means.unbind()))
+
+    def _sweep(self, ts: PPOTrainState, packed: torch.Tensor,
+               perms: torch.Tensor) -> torch.Tensor:
+        """The eager sweep: ``_minibatch_step`` on every minibatch of every
+        epoch; the metrics' means over the grad steps, ``[5]``."""
         cfg = self.cfg
         d = self.obs_dim
         history = []
@@ -429,8 +450,7 @@ class PPOTrainer(Trainer):
             mb_xs = packed[perm].reshape(cfg.num_minibatches, cfg.minibatch_size, d + 4)
             for mb in mb_xs:
                 history.append(self._minibatch_step(ts, mb))
-        means = torch.stack(history).mean(dim=0)
-        return dict(zip(METRICS, means.unbind()))
+        return torch.stack(history).mean(dim=0)
 
     def _minibatch_step(self, ts: PPOTrainState, mb: torch.Tensor) -> torch.Tensor:
         """One clipped Adam step on the packed rows ``mb``; returns its

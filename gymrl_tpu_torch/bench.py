@@ -4,8 +4,10 @@
 
 The JAX package's ``bench.py`` config exactly: B=8192 envs × T=64 steps,
 4 epochs × minibatch 16384 (128 grad steps per 524288-sample rollout), flat
-optimizer, bf16 SGD, unroll 8 (a no-op here). One warm-up iteration, then 5
-timed ones fenced by ``torch.cuda.synchronize()``. Prints ONE JSON line of
+optimizer, bf16 SGD, unroll 8 (a no-op here). Two warm-up iterations (the
+eager one, then the one that captures the SGD sweep's CUDA graph, as the
+JAX bench's first call compiles), then 5 timed ones fenced by
+``torch.cuda.synchronize()``. Prints ONE JSON line of
 ``bench.py``'s shape — metric, value, unit, vs_baseline (value / 1e6) — plus
 the GPU's name and power limit as ``nvidia-smi`` reports them.
 """
@@ -48,7 +50,8 @@ def main(argv=None) -> None:
     trainer = PPOTrainer(cfg, device=args.device)
     ts = trainer.init(0)
 
-    ts, _ = trainer.train_iter(ts)  # warm-up
+    for _ in range(2):  # the warm-up, then the sweep's capture
+        ts, _ = trainer.train_iter(ts)
     _sync(trainer.device)
 
     iters = 5

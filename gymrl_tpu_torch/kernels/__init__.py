@@ -9,7 +9,8 @@
 
 ``build.py`` compiles each source with ``nvcc`` at its first use. Each
 wrapper adds one to its entry of ``LAUNCHES`` where it launches its kernel,
-so a run can show which kernels its path went through. ``launch`` calls a
+so a run can show which kernels its path went through; a CUDA graph's
+replay adds what its capture counted. ``launch`` calls a
 C launcher of either library.
 """
 
@@ -22,6 +23,13 @@ LAUNCHES: dict[str, int] = {"lunarlander_step": 0, "lunarlander_reset": 0, "ppo_
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Adds ``counts`` to ``LAUNCHES``: what one replay of a CUDA graph
+    launches, as its capture counted it (``algos.base.SweepGraph``)."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def launch(fn, args, device: torch.device, what: str) -> None:

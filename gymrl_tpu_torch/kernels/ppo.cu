@@ -402,6 +402,10 @@ struct AdamTable {
 
 struct AdamScalars {
   const float* sq;  // [n_sq] squared norms of every gradient tensor of the step
+  // null, or the (step_size, bc2) of every tensor of the table, on the card: a launch
+  // captured into a CUDA graph reads its step's terms there, filled before each replay,
+  // where the table's own values would be frozen at their capture
+  const float* terms;
   int n_sq;
   float max_norm, lerp_weight, beta2, one_minus_beta2, eps;
   int divide;  // 1: denom = sqrt(v) / bc2 (foreach); 0: sqrt(v) * bc2 (one tensor at a time)
@@ -525,7 +529,8 @@ __global__ void __launch_bounds__(THREADS) clip_adam(AdamTable t, AdamScalars s)
   float* m = t.m[k] + begin;
   float* v = t.v[k] + begin;
   const float* g = t.g[k] + begin;
-  const float step_size = t.step_size[k], bc2 = t.bc2[k];
+  const float step_size = s.terms ? __ldg(s.terms) : t.step_size[k];
+  const float bc2 = s.terms ? __ldg(s.terms + 1) : t.bc2[k];
   if ((t.aligned >> k) & 1u) {
     const int n4 = len >> 2;
     float4 G[ADAM_VEC], P[ADAM_VEC], M[ADAM_VEC], V[ADAM_VEC];
@@ -742,11 +747,14 @@ extern "C" int grad_sq_norms_launch(const float* const* grads, const long long* 
 }
 
 // aligned[k] != 0: params[k], grads[k], exp_avgs[k] and exp_avg_sqs[k] all lie on 16 bytes and
-// are read and written as float4 (refused if one does not).
+// are read and written as float4 (refused if one does not). device_terms: null (each tensor's
+// step_sizes[k] and bc2_terms[k] reach the kernel by value), or a (step_size, bc2) pair on the
+// card for every tensor, which the kernel reads when it runs (a launch captured into a graph).
 extern "C" int clip_adam_launch(
     float* const* params, const float* const* grads, float* const* exp_avgs,
     float* const* exp_avg_sqs, const long long* numels, const float* step_sizes,
-    const float* bc2_terms, const int* aligned, int n_tensors, const float* sq, int n_sq,
+    const float* bc2_terms, const float* device_terms, const int* aligned, int n_tensors,
+    const float* sq, int n_sq,
     float max_norm, float lerp_weight, float beta2, float one_minus_beta2, float eps, int divide,
     int device, cudaStream_t stream) {
   if (n_tensors <= 0 || n_tensors > MAX_TENSORS || n_sq <= 0) return (int)cudaErrorInvalidValue;
@@ -772,7 +780,8 @@ extern "C" int clip_adam_launch(
   }
   const int chunks = chunk_table(t.numel, n_tensors, t.chunk_start, ADAM_CHUNK);
   if (chunks <= 0) return (int)cudaErrorInvalidValue;
-  const AdamScalars s{sq, n_sq, max_norm, lerp_weight, beta2, one_minus_beta2, eps, divide};
+  const AdamScalars s{sq, device_terms, n_sq, max_norm, lerp_weight,
+                      beta2, one_minus_beta2, eps, divide};
   clip_adam<<<chunks, THREADS, 0, stream>>>(t, s);
   return (int)cudaGetLastError();
 }

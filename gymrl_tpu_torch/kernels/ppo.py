@@ -32,10 +32,17 @@ Adam does and computes its bias corrections on the host in double, as Adam
 does, once per distinct step count, so checkpoints and every reader of
 ``opt.state`` see what the plain step leaves. One difference: the plain clip
 scales ``p.grad`` in place, the kernel reads it and leaves it unscaled.
+
+A sweep captured into a CUDA graph (``algos.base.SweepGraph``) replays its
+launches with the arguments they had at capture, so there ``clip_adam``
+reads its step terms from the card (``device_terms``: one ``(step_size,
+bc2)`` pair a grad step, which ``adam_run_terms`` computes before each
+replay) and leaves the step counts to the replay.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import itertools
 import operator
@@ -64,7 +71,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LOSS_FWD_ARGTYPES = [_P] * 9 + [_I] * 7 + [_F] * 6 + [_I, _P]
 LOSS_BWD_ARGTYPES = [_P] * 9 + [_I] * 8 + [_F] * 6 + [_I, _P]
 SQ_NORMS_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _I, _P]
-CLIP_ADAM_ARGTYPES = [_P] * 8 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
+CLIP_ADAM_ARGTYPES = [_P] * 9 + [_I, _P, _I] + [_F] * 5 + [_I, _I, _P]
 
 _LIB: ctypes.CDLL | None = None
 # The float64 partials and the self-resetting int32 ticket of the last-block reductions
@@ -78,6 +85,8 @@ _HEAD_SCALARS: dict[tuple, tuple[float, ...]] = {}
 _SQ_TABLE: tuple[tuple, list] | None = None
 # clip_adam's launches for the last optimizer and gradients (``_AdamTable``).
 _ADAM_TABLE: "_AdamTable | None" = None
+# While a sweep is captured (``device_terms``): the step terms on the card and the pairs taken.
+_RUN_TERMS: "_TermsRun | None" = None
 
 
 def defines() -> dict[str, str]:
@@ -385,9 +394,9 @@ def aligned_flags(*tables: list[torch.Tensor]) -> list[int]:
 # The step counts Adam may hold, by dtype.
 _STEP_CTYPES = {torch.float32: ctypes.c_float, torch.float64: ctypes.c_double}
 
-# The param group's entries that decide the launch besides the tensors.
-_GROUP_KEYS = ("lr", "betas", "eps", "foreach", "amsgrad", "weight_decay", "maximize",
-               "capturable", "differentiable", "fused", "decoupled_weight_decay")
+# The param group's entries that decide the launch besides the tensors and the lr.
+_GROUP_OPTIONS = ("betas", "eps", "foreach", "amsgrad", "weight_decay", "maximize",
+                  "capturable", "differentiable", "fused", "decoupled_weight_decay")
 
 
 class _AdamTable:
@@ -453,33 +462,116 @@ class _AdamTable:
                 arrays[5][j], arrays[6][j] = both
 
 
-def _adam_table(opt: torch.optim.Adam, grads: list[torch.Tensor], gkey: tuple,
-                dev: torch.device) -> _AdamTable:
-    """The cached table for ``opt`` and ``grads``, rebuilt (and checked)
-    when its key changed."""
-    global _ADAM_TABLE
+def _adam_state(opt: torch.optim.Adam) -> tuple[dict, list, list, list, list]:
+    """Adam's one param group, and its params, ``exp_avg``, ``exp_avg_sq``
+    and ``step`` tensors in the group's order."""
     if len(opt.param_groups) != 1:
         raise ValueError(f"clip_adam steps one param group, not {len(opt.param_groups)}")
     group = opt.param_groups[0]
     ps = group["params"]
-    if len(ps) != len(grads):
-        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
-    state = opt.state
     try:
-        states = list(map(state.__getitem__, ps))
+        states = list(map(opt.state.__getitem__, ps))
         ms = [s["exp_avg"] for s in states]
         vs = [s["exp_avg_sq"] for s in states]
         steps = [s["step"] for s in states]
     except KeyError:
         raise ValueError("clip_adam needs Adam's state made up front (algos.base.adam)") from None
-    key = (MAX_TENSORS, ADAM_CHUNK, id(state), id(group), tuple(map(group.get, _GROUP_KEYS)),
-           gkey, tuple(map(_data_ptr, itertools.chain(ps, ms, vs))),
+    return group, ps, ms, vs, steps
+
+
+def adam_key(opt: torch.optim.Adam) -> tuple[tuple, tuple]:
+    """What ``clip_adam``'s launches read of ``opt`` but the group's lr: the
+    optimizer's state and param group (by identity: ``load_state_dict``
+    replaces both), the group's options, each (address, numel) of the params,
+    ``exp_avg`` and ``exp_avg_sq``, and the step tensors (by identity). With
+    it, the objects it names by identity, for the caller to hold while it
+    keeps the key, so that no identity in it is reused."""
+    return _adam_key(opt, *_adam_state(opt))
+
+
+def _adam_key(opt, group, ps, ms, vs, steps) -> tuple[tuple, tuple]:
+    key = (id(opt.state), id(group), tuple(map(group.get, _GROUP_OPTIONS)),
+           tuple(map(_data_ptr, itertools.chain(ps, ms, vs))),
            tuple(map(_numel, itertools.chain(ps, ms, vs))), tuple(map(id, steps)))
+    return key, (opt.state, group, steps)
+
+
+def _adam_table(opt: torch.optim.Adam, grads: list[torch.Tensor], gkey: tuple,
+                dev: torch.device) -> _AdamTable:
+    """The cached table for ``opt`` and ``grads``, rebuilt (and checked)
+    when its key changed."""
+    global _ADAM_TABLE
+    group, ps, ms, vs, steps = _adam_state(opt)
+    if len(ps) != len(grads):
+        raise ValueError(f"{len(grads)} gradients for {len(ps)} parameters")
+    state_key, holds = _adam_key(opt, group, ps, ms, vs, steps)
+    key = (MAX_TENSORS, ADAM_CHUNK, group["lr"], gkey, state_key)
     table = _ADAM_TABLE
     if table is None or table.key != key:
-        table = _ADAM_TABLE = _AdamTable(key, (state, group, steps), opt, list(ps), grads, ms,
-                                         vs, steps, dev)
+        table = _ADAM_TABLE = _AdamTable(key, holds, opt, list(ps), grads, ms, vs, steps, dev)
     return table
+
+
+class _TermsRun:
+    """The step terms of a captured sweep: ``terms`` f32[K, 2] on the card,
+    and how many of its pairs the sweep's ``clip_adam`` calls have taken."""
+
+    def __init__(self, terms: torch.Tensor):
+        self.terms, self.taken = terms, 0
+
+    def next_pair(self, dev: torch.device) -> int:
+        if self.taken == self.terms.shape[0]:
+            raise ValueError(f"the sweep steps Adam more than the {self.taken} times its "
+                             "step terms hold")
+        if self.terms.device != dev:
+            raise ValueError(f"the step terms are on {self.terms.device}, the grads on {dev}")
+        self.taken += 1
+        return self.terms.data_ptr() + 8 * (self.taken - 1)
+
+
+@contextlib.contextmanager
+def device_terms(terms: torch.Tensor):
+    """While a sweep is captured into a CUDA graph: grad step i's
+    ``clip_adam`` reads its step terms from ``terms[i]`` (``(step_size,
+    bc2)``; f32[K, 2], contiguous, on the card, filled before each replay
+    from ``adam_run_terms``) and counts no step on the host, which the
+    replay does. Yields the run, whose ``taken`` says how many grad steps
+    took a pair."""
+    global _RUN_TERMS
+    if terms.dtype != torch.float32 or terms.dim() != 2 or terms.shape[1] != 2 \
+            or not terms.is_contiguous():
+        raise ValueError(f"step terms are f32[K, 2] contiguous, not {terms.dtype}"
+                         f"{list(terms.shape)}")
+    if _RUN_TERMS is not None:
+        raise RuntimeError("a sweep is already being captured")
+    run = _RUN_TERMS = _TermsRun(terms)
+    try:
+        yield run
+    finally:
+        _RUN_TERMS = None
+
+
+def adam_run_terms(opt: torch.optim.Adam, k: int) -> tuple[np.ndarray, float]:
+    """The step terms of ``opt``'s next ``k`` steps, f32[k, 2] of
+    ``(step_size, bc2)`` at the group's lr, bit for bit what ``k``
+    successive ``_AdamTable.count_step``s leave in the table, and the step
+    count after them. Every tensor must hold the same count and dtype (a
+    trainer's do): the pair then applies to the whole table."""
+    group, _, _, _, steps = _adam_state(opt)
+    beta1, beta2, _, foreach = _adam_scalars(group)
+    first = steps[0]
+    if first.dtype not in _STEP_CTYPES or first.numel() != 1 or first.device.type != "cpu":
+        raise ValueError(f"clip_adam counts a float32 or float64 step on the host, not "
+                         f"{first.dtype}{list(first.shape)} on {first.device}")
+    count = _STEP_CTYPES[first.dtype](float(first))
+    if any(t.dtype != first.dtype or float(t) != count.value for t in steps):
+        raise ValueError("one pair of step terms needs every tensor at the same step count")
+    lr = float(group["lr"])
+    out = np.empty((k, 2), dtype=np.float32)
+    for j in range(k):
+        count.value += 1.0  # rounded to the step's dtype, as count_step's +1
+        out[j] = adam_step_terms(count.value, lr, beta1, beta2, foreach)
+    return out, count.value
 
 
 def clip_adam(opt: torch.optim.Adam, grads: list[torch.Tensor], sq: torch.Tensor,
@@ -489,15 +581,21 @@ def clip_adam(opt: torch.optim.Adam, grads: list[torch.Tensor], sq: torch.Tensor
     ``algos.base.adam`` builds it) with the scaled ``grads``, in place; one
     launch per ``MAX_TENSORS`` tensors. Adam's CPU ``step`` counts go up by
     one as Adam's do; the launch table is kept while nothing it was built
-    from changes (``_AdamTable``)."""
+    from changes (``_AdamTable``). Under ``device_terms`` the launches read
+    the next pair of step terms on the card, and the counts stay."""
     dev, gkey = _check_grads(grads, "clip_adam")
     _expect("sq", sq, (len(grads),), dev)
     table = _adam_table(opt, grads, gkey, dev)
     lib = _library()
-    table.count_step()  # CPU tensors: no sync with the card
+    if _RUN_TERMS is None:
+        table.count_step()  # CPU tensors: no sync with the card
+        terms = None
+    else:
+        terms = _RUN_TERMS.next_pair(dev)
     n_sq, max_norm = len(grads), _f32(max_norm)
     for arrays, _, k in table.launches:
         _launch(lib.clip_adam_launch,
-                [*map(ctypes.addressof, arrays), k, sq, n_sq, max_norm, *table.scalars],
+                [*map(ctypes.addressof, arrays[:7]), terms, ctypes.addressof(arrays[7]), k, sq,
+                 n_sq, max_norm, *table.scalars],
                 dev, "clip_adam")
         kernels.LAUNCHES["clip_adam"] += 1

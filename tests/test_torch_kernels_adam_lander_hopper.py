@@ -47,8 +47,9 @@ class AdamLib:
     def __init__(self):
         self.calls = []
 
-    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, aligned, k, sq,
-                         n_sq, max_norm, w, beta2, c2, eps, divide, device, stream):
+    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, device_terms,
+                         aligned, k, sq, n_sq, max_norm, w, beta2, c2, eps, divide, device,
+                         stream):
         def read(addr, t=ctypes.c_void_p):
             return list((t * k).from_address(addr))
 
@@ -258,7 +259,7 @@ def test_lander_grid_gives_every_env_one_thread_of_each_lane(num):
 @pytest.mark.parametrize("source,fn,argtypes,names", [
     (kp.SOURCE, "clip_adam_launch", kp.CLIP_ADAM_ARGTYPES,
      ["params", "grads", "exp_avgs", "exp_avg_sqs", "numels", "step_sizes", "bc2_terms",
-      "aligned", "n_tensors", "sq", "n_sq", "max_norm", "lerp_weight", "beta2",
+      "device_terms", "aligned", "n_tensors", "sq", "n_sq", "max_norm", "lerp_weight", "beta2",
       "one_minus_beta2", "eps", "divide", "device", "stream"]),
     (kl.SOURCE, "lander_step_launch", kl.STEP_ARGTYPES, None)])
 def test_changed_launchers_bind_by_ctypes(source, fn, argtypes, names):

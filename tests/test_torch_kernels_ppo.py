@@ -484,8 +484,9 @@ class FakeLib:
                             sq=sq, partials=partials))
         return 0
 
-    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, aligned, k, sq,
-                         n_sq, max_norm, w, beta2, c2, eps, divide, device, stream):
+    def clip_adam_launch(self, params, grads, m, v, numels, step_sizes, bc2, device_terms,
+                         aligned, k, sq, n_sq, max_norm, w, beta2, c2, eps, divide, device,
+                         stream):
         read = lambda addr, t=ctypes.c_void_p: list((t * k).from_address(addr))  # noqa: E731
         self.adam.append(dict(params=read(params), grads=read(grads), m=read(m), v=read(v),
                               numels=read(numels, ctypes.c_longlong),
