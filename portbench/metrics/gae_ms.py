@@ -1,0 +1,15 @@
+"""gae_ms: advantages and packing: the next-value forward over all T·B
+successors, GAE, standardization and the packed rows, in ms, averaged over
+the window's iterations.
+
+Read between two CUDA events the benchmark records on the card's stream
+through ``train_iter``'s timer (``gymrl_tpu_torch/algos/ppo.py`` :305-365):
+from the "rollout" mark to the "gae" mark. On a host-bound phase the events
+follow the host, so this is the phase's time as the iteration pays it, not
+the device's busy time in it.
+"""
+
+
+def read(view):
+    rows = [r["gae"] for r in view.phases if "gae" in r]
+    return sum(rows) / len(rows) if rows else None
