@@ -20,7 +20,7 @@ only if all of them pass.
      most 8 of the 8192 envs may differ more, or in their contact and
      termination flags (a contact test that ties within float32 rounding
      on one side only).
-  2. Bench config (``gymrl_tpu_torch.bench``: B=8192, T=64, 4 epochs of
+  2. Bench config (``bench_config``: B=8192, T=64, 4 epochs of
      minibatch 16384, flat optimizer, bf16 SGD): two warm-up ``train_iter``s
      and three timed ones. Prints env-steps/s, each phase's time from CUDA
      events (rollout; next-value forward plus GAE; SGD) and the peak device
@@ -212,8 +212,17 @@ only if all of them pass.
      and the iteration that captures the sweep, so the traced one replays
      it: CUDA kernel launches per iteration, summed kernel time and the
      busy share (the union of kernel intervals over the iteration's wall
-     time, traced and untraced); ``Throughput`` over two untraced bench
-     iterations must read within 10% of the wall-clock rate.
+     time, traced and untraced). (b) The program's spans
+     (``utils.profiling.span``) on ``ppo_lunarlander``, the benchmark's
+     cell, ``phase_spans``: the set-up's spans; the mean host time of the
+     ``policy`` and ``env.step`` spans over 30 iterations, in which nothing
+     is captured or compiled again; and 3 iterations under
+     ``torch.profiler`` read by ``utils.profiling.span_trace``: every
+     kernel put down to the span of its launch call (or counted as having
+     none in the trace, which only the hand-written kernels may lack), every
+     ``lander_step`` inside ``env.step`` and every ``clip_adam`` inside
+     ``sgd``, launch calls per rollout step, kernels per grad step, the
+     idle share inside ``rollout`` and the idle time by span.
  18. The lander kernels (``gymrl_tpu_torch/kernels/lunarlander.cu``)
      against the plain path on the card, from the same inputs, at every
      batch the main path gives them (32, 64 and 8192 envs: the lander CLI
@@ -362,7 +371,7 @@ PHYS_WARM_STEPS = 90  # random-action steps until ~40% of landers touch the grou
 PHYS_ATOL = 1e-4
 PHYS_MAX_TIES = 8
 BENCH_TIMED_ITERS = 3
-BENCH_WARM_ITERS = 2  # the warm-up and the sweep's capture, as bench.py warms up
+BENCH_WARM_ITERS = 2  # the warm-up and the sweep's capture
 ENTRY_ITERS = 3
 CLASSIC_ENVS = 8192
 CLASSIC_WARM_STEPS = 40
@@ -391,6 +400,18 @@ COV_TIE = 1e-5  # a covariance this close to clip-cov's band edge may fall on ei
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bench_config():
+    """The bench config, the JAX package's ``bench.py`` config: B=8192 envs ×
+    T=64 steps, 4 epochs × minibatch 16384 (128 grad steps per 524,288-step
+    rollout), flat optimizer, bf16 SGD, unroll 8 (a no-op in the port). At
+    its ``max_train_steps`` the lr anneals to 0 from the third iteration."""
+    from gymrl_tpu_torch.algos.ppo import PPOConfig
+
+    return PPOConfig(env_name="LunarLander-v3", num_envs=8192, rollout_steps=64,
+                     minibatch_size=16384, num_epochs=4, flat_optimizer=True, sgd_bf16=True,
+                     sgd_unroll=8, rollout_unroll=8)
 
 
 def phase_physics(device: torch.device, num: int = PHYS_ENVS,
@@ -490,9 +511,8 @@ class PhaseClock:
 def phase_bench(device: torch.device, cfg=None, timed_iters: int = BENCH_TIMED_ITERS) -> dict:
     """The bench config's train_iter on ``device``: throughput and phases."""
     from gymrl_tpu_torch.algos.ppo import PPOTrainer
-    from gymrl_tpu_torch.bench import BENCH_CONFIG
 
-    cfg = cfg or BENCH_CONFIG
+    cfg = cfg or bench_config()
     cuda = device.type == "cuda"
     trainer = PPOTrainer(cfg, device=device)
     ts = trainer.init(0)
@@ -2387,8 +2407,7 @@ def _dist_trainer(name: str, device, mesh=None, first_update: bool = False):
 
     if name == "bench":
         from gymrl_tpu_torch.algos.ppo import PPOTrainer
-        from gymrl_tpu_torch.bench import BENCH_CONFIG
-        return PPOTrainer(BENCH_CONFIG, device=device, mesh=mesh)
+        return PPOTrainer(bench_config(), device=device, mesh=mesh)
     from gymrl_tpu_torch.run import cli
     proto = cli.WORKLOADS[name]("cpu")[0]
     cfg = proto.cfg
@@ -2646,17 +2665,22 @@ def phase_distributed(device: torch.device, cases=DIST_CASES, one_case: str = "b
 
 # -- phase 17: profile ------------------------------------------------------------
 PROFILE_CASES = ("bench", "ppo_lunarlander")
-PROFILE_RATE_ITERS = 2  # untraced iterations fed to Throughput
-THROUGHPUT_RTOL = 0.10
+SPAN_CASE = "ppo_lunarlander"  # the benchmark's cell: gymRL's preset, 32 envs x T 64
+SPAN_SETUP_ITERS = 3  # the eager sweep, the capture and its replay, a replay
+SPAN_WINDOW_ITERS = 30
+SPAN_PROFILED_ITERS = 3
+# The hand-written kernels by their names in a trace, with their keys in kernels.LAUNCHES.
+HAND_WRITTEN = {"lander_step": "lunarlander_step", "lander_reset": "lunarlander_reset",
+                "ppo_loss_fwd": "ppo_loss_fwd", "ppo_loss_bwd": "ppo_loss_bwd",
+                "grad_sq_norms": "grad_sq_norms", "clip_adam": "clip_adam"}
+SPAN_OF_KERNEL = {"lander_step": "env.step", "clip_adam": "sgd"}  # the span each must be in
 
 
-def phase_profile(device: torch.device, cases=PROFILE_CASES,
-                  rate_iters: int = PROFILE_RATE_ITERS) -> list[dict]:
-    """Phase 17: one ``train_iter`` per case under ``trace`` (kernel
-    launches, kernel time, busy share of the iteration), then untraced
-    iterations, whose wall time the busy share is also read against; the
-    bench config's are fed to ``Throughput``."""
-    from gymrl_tpu_torch.utils.profiling import Throughput, kernel_stats, trace
+def phase_profile(device: torch.device, cases=PROFILE_CASES) -> list[dict]:
+    """Phase 17 (a): one ``train_iter`` per case under ``trace`` (kernel
+    launches, kernel time, busy share of the iteration), then an untraced
+    one, whose wall time the busy share is also read against."""
+    from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
 
     results = []
     for name in cases:
@@ -2673,16 +2697,7 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
         stats = kernel_stats(prof)
         stats_s = time.perf_counter() - t0
         del prof
-        meter = Throughput()
-        meter.update(ts.env_steps)
-        n = rate_iters if name == cases[0] else 1
-        t0, walls = time.perf_counter(), []
-        for _ in range(n):
-            ts, _, wall = _timed_iter(trainer, ts)
-            walls.append(wall)
-            meter.update(ts.env_steps)
-        wall_rate = n * trainer.cfg.batch_total / (time.perf_counter() - t0)
-        untraced = sum(walls) / n
+        ts, _, untraced = _timed_iter(trainer, ts)
         result = {"case": name, "env_steps_per_iter": trainer.cfg.batch_total,
                   "launches_per_iter": stats["kernels"], "kernel_ms": stats["kernel_ms"],
                   "busy_ms": stats["busy_ms"], "traced_wall_ms": traced * 1e3,
@@ -2691,17 +2706,140 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES,
                   "busy_share_untraced": stats["busy_ms"] / (untraced * 1e3),
                   "trace_bytes": trace_bytes, "stop_and_export_s": export_s,
                   "kernel_stats_s": stats_s}
-        if n > 1:
-            result.update(throughput_rate=meter.rate, wall_rate=wall_rate)
-        result["sweep_graph"] = _sweep_graph_counts(f"phase 17 {name}", trainer, n + 3)
+        result["sweep_graph"] = _sweep_graph_counts(f"phase 17 {name}", trainer, 4)
         log("phase 17 profile: " + json.dumps(result))
         if stats["kernels"] == 0 or trace_bytes == 0:
             raise AssertionError(f"{name}: the trace holds no kernel")
-        if n > 1 and abs(meter.rate / wall_rate - 1.0) > THROUGHPUT_RTOL:
-            raise AssertionError(f"{name}: Throughput {meter.rate} vs wall {wall_rate}")
         results.append(result)
         del trainer, ts
     return results
+
+
+def _fetch_iter(trainer, ts):
+    """One ``train_iter`` and the host fetch of its episode statistics, as
+    ``TrainLoop.train`` makes after every iteration."""
+    ts, out = trainer.train_iter(ts)
+    out.ep_done.cpu(), out.ep_return.cpu()
+    return ts
+
+
+def _span_totals(spans) -> dict:
+    """Count and total seconds of the closed spans by name (and note)."""
+    out: dict = {}
+    for s in spans:
+        key = f"{s.name} [{s.note}]" if s.note else s.name
+        n, total = out.get(key, (0, 0.0))
+        out[key] = (n + 1, total + (s.end_ns - s.start_ns) / 1e9)
+    return out
+
+
+def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_WINDOW_ITERS,
+                profiled: int = SPAN_PROFILED_ITERS) -> dict:
+    """Phase 17 (b): the program's spans (``utils.profiling.span``) on the
+    benchmark's cell. Tracing on, a fresh trainer's set-up (``init`` and the
+    iterations that warm up and capture the sweep): each span's count and
+    seconds. Then ``window`` iterations, each with its host fetch: the mean
+    host time of a ``policy`` span and of an ``env.step`` span, and no
+    ``sgd.capture`` or compiling ``kernels.load`` among them. Then
+    ``profiled`` iterations under ``torch.profiler``, read by ``span_trace``:
+    the kernels put down to spans, to no span, and with no launch call in
+    the trace (these three must sum to the kernels traced; those with no
+    launch call must be, if any, exactly the hand-written kernels the
+    program counted, ``kernels.LAUNCHES``); every ``lander_step`` inside an
+    ``env.step`` span and every ``clip_adam`` inside an ``sgd`` span unless
+    their launch calls are missing; the host launch calls inside ``rollout``
+    spans per env step; the kernels inside ``sgd`` spans per grad step; the
+    idle share of the device inside ``rollout`` spans, over the profiled
+    wall time; and the idle time by innermost span, the longest ten."""
+    from collections import Counter
+
+    from gymrl_tpu_torch import kernels
+    from gymrl_tpu_torch.utils import profiling
+
+    profiling.clear()
+    profiling.enable()
+    try:
+        trainer = _dist_trainer(case, device)
+        ts = trainer.init(0)
+        for _ in range(SPAN_SETUP_ITERS):
+            ts = _fetch_iter(trainer, ts)
+        _sync(device)
+        setup = _span_totals(s for s in profiling.spans() if s.iteration == -1
+                             or s.name.startswith(("sgd.", "kernels.")))
+        log(f"phase 17 spans {case} set-up: " + json.dumps(setup))
+
+        profiling.clear()
+        for _ in range(window):
+            ts = _fetch_iter(trainer, ts)
+        _sync(device)
+        spans = profiling.spans()
+        totals = _span_totals(spans)
+        rebuilt = [f"{s.name} [{s.note}]" for s in spans
+                   if s.name == "sgd.capture" or "compiled" in s.note]
+
+        profiling.clear()
+        before = dict(kernels.LAUNCHES)
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        prof.start()
+        for _ in range(profiled):
+            ts = _fetch_iter(trainer, ts)
+        _sync(device)
+        prof.stop()
+        launched = {k: n - before[k] for k, n in kernels.LAUNCHES.items()}
+        got = profiling.span_trace(prof)
+        calls = Counter(name for name, _, _ in got.launches)
+        del prof
+    finally:
+        profiling.disable()
+        profiling.clear()
+
+    cfg = trainer.cfg
+    ends = [b for _, _, b, _ in got.spans] + [b for _, _, b, _ in got.kernels]
+    t0, t1 = min(a for _, a, _, _ in got.spans), max(ends)
+    by_span = got.kernels_by_span()
+    lost = Counter(n for n, _, _, p in got.kernels if p is None)
+    own = {k: sum(n for name, n in lost.items() if k in name) for k in HAND_WRITTEN}
+    inside = {k: sum(k in n and p is not None and where in p for n, _, _, p in got.kernels)
+              for k, where in SPAN_OF_KERNEL.items()}
+    result = {
+        "case": case,
+        "policy_us": totals["policy"][1] / totals["policy"][0] * 1e6,
+        "env_step_us": totals["env.step"][1] / totals["env.step"][0] * 1e6,
+        "window_spans": totals, "rebuilt_in_window": rebuilt,
+        "kernels_traced": len(got.kernels),
+        "kernels_in_spans": sum(n for p, n in by_span.items() if p),
+        "kernels_outside_spans": by_span.get((), 0),
+        "kernels_without_launch_call": sum(lost.values()),
+        "kernels_without_launch_call_by_name": dict(lost.most_common(10)),
+        "kernels_by_span": {str(p): n for p, n in by_span.most_common()},
+        "launch_calls": dict(calls),
+        "launched_by_counter": launched, "inside_their_span": inside,
+        "rollout_launches_per_step": sum("rollout" in p for *_, p in got.launches)
+        / (profiled * cfg.rollout_steps),
+        "sgd_kernels_per_grad_step": sum(p is not None and "sgd" in p for *_, p in got.kernels)
+        / (profiled * cfg.num_epochs * cfg.num_minibatches),
+        "idle_in_rollout": got.idle_ns(t0, t1, inside="rollout") / (t1 - t0),
+        "idle_share": got.idle_ns(t0, t1) / (t1 - t0),
+        "idle_by_span_s": [[n, ns / 1e9] for n, ns in got.idle_by_span(t0, t1).most_common(10)],
+        "profiled_wall_s": (t1 - t0) / 1e9,
+    }
+    log(f"phase 17 spans {case}: " + json.dumps(result))
+    if rebuilt:
+        raise AssertionError(f"{case}: built again in the window: {rebuilt}")
+    if (result["kernels_in_spans"] + result["kernels_outside_spans"]
+            + result["kernels_without_launch_call"] != result["kernels_traced"]):
+        raise AssertionError(f"{case}: the kernels put down do not sum to those traced")
+    if sum(own.values()) != result["kernels_without_launch_call"]:
+        raise AssertionError(f"{case}: kernels with no launch call in the trace that the "
+                             f"program did not write: {dict(lost)}")
+    for k, where in SPAN_OF_KERNEL.items():
+        want = launched[HAND_WRITTEN[k]]
+        if inside[k] + own[k] != want or own[k] not in (0, want):
+            raise AssertionError(f"{case}: {want} {k} launched, {inside[k]} inside {where} "
+                                 f"spans, {own[k]} with no launch call in the trace")
+    del trainer, ts
+    return result
 
 
 # -- phase 18: the lander kernels against the plain path on the card ---------------
@@ -2796,9 +2934,8 @@ def kernel_envs() -> tuple[int, ...]:
     from gymrl_tpu_torch.algos.ppo_full import PPOFullConfig
     from gymrl_tpu_torch.algos.ppo_lstm import PPOLSTMConfig
     from gymrl_tpu_torch.algos.ppo_rnn import ppo_rnn_lunarlander_config
-    from gymrl_tpu_torch.bench import BENCH_CONFIG
 
-    cfgs = (BENCH_CONFIG, PPOConfig(), ppo_rnn_lunarlander_config(),
+    cfgs = (bench_config(), PPOConfig(), ppo_rnn_lunarlander_config(),
             ppg_rnn_lunarlander_config(), PPOFullConfig(), PPOLSTMConfig())
     return tuple(sorted({c.num_envs for c in cfgs}))
 
@@ -4172,14 +4309,14 @@ def main() -> int:
 
     from gymrl_tpu_torch.kernels import build
 
-    from gymrl_tpu_torch.bench import BENCH_CONFIG
     from gymrl_tpu_torch.run import cli
 
     timed(1, phase_physics, device)  # the first lander step on the card builds the kernels
     _, main_path = timed(2, _on_kernels, "phase 2", phase_bench, device,
                          names=LANDER_KERNELS + UPDATE_KERNELS)  # its first grad step builds ppo.cu
     log("build_s: " + json.dumps(build.BUILD_SECONDS))
-    bench_steps = BENCH_CONFIG.num_epochs * BENCH_CONFIG.num_minibatches
+    bench = bench_config()
+    bench_steps = bench.num_epochs * bench.num_minibatches
     _check_update_launches("phase 2", main_path,
                            (BENCH_TIMED_ITERS + BENCH_WARM_ITERS) * bench_steps)
     _, entry = timed(3, _on_kernels, "phase 3", phase_entry, device,
@@ -4214,6 +4351,7 @@ def main() -> int:
     timed(15, phase_render, device)
     timed(16, phase_distributed, device)
     timed(17, phase_profile, device)
+    timed(17, phase_spans, device)
     phase18 = timed(18, phase_kernels, device)
     phase19 = timed(19, phase_update_kernels, device)
     timed(20, phase_graph, device)

@@ -37,6 +37,7 @@ from gymrl_tpu_torch.distributed.mesh import constrain_batch, gather_pytree_batc
 from gymrl_tpu_torch.kernels import ppo as ppo_kernels
 from gymrl_tpu_torch.utils.device import resolve_device
 from gymrl_tpu_torch.utils.logging import get_logger
+from gymrl_tpu_torch.utils.profiling import span
 
 
 class IterOut(NamedTuple):
@@ -277,6 +278,8 @@ class SweepGraph:
         grads in the graph's pool; after a replay ``p.grad`` is the last
         step's, as after the eager sweep.
     The returned tensor is a copy: the next replay overwrites the graph's.
+    Each route is a span of ``utils.profiling``: ``sgd.warmup``,
+    ``sgd.capture``, ``sgd.replay``.
     """
 
     def __init__(self, device: torch.device, steps: int):
@@ -303,7 +306,7 @@ class SweepGraph:
                 self.graph = None  # it reads the buffer this one replaces
             held.copy_(x)
         if not self.warm:
-            with self._side():
+            with span("sgd.warmup"), self._side():
                 out = body(self.static)
             self._join()
             if self.cuda:  # made on the side stream: kept from its pool while the current reads it
@@ -313,9 +316,11 @@ class SweepGraph:
         key, holds = graph_key(net, opt)
         if self.graph is None or key != self.key:
             self.graph = self.out = None  # its pool goes with its last tensors
-            self._capture(net, opt, body)
+            with span("sgd.capture"):
+                self._capture(net, opt, body)
             self.key, self.holds = key, holds
-        return self._replay(net, opt)
+        with span("sgd.replay"):
+            return self._replay(net, opt)
 
     def _side(self):
         """The side stream as the current one, after the work queued so far."""

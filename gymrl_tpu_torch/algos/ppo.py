@@ -56,6 +56,7 @@ from gymrl_tpu_torch.kernels import ppo as ppo_kernels
 from gymrl_tpu_torch.kernels.ppo import METRICS
 from gymrl_tpu_torch.nn import initializers as gl_init
 from gymrl_tpu_torch.nn.layers import Dense
+from gymrl_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -278,21 +279,22 @@ class PPOTrainer(Trainer):
         same weights on every device); env and training noise from a
         generator on the trainer's device."""
         cfg = self.cfg
-        gen = torch.Generator().manual_seed(seed)
-        net = ActorCritic(self.obs_dim, self.n_actions, cfg.hidden_dim, generator=gen)
-        if self.mesh is not None:
-            net = split_trunk(net, self.mesh)
-        net = net.to(self.device)
-        noise = self._noise(seed)
-        return PPOTrainState(
-            params=net,
-            opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
-                           foreach=cfg.flat_optimizer),
-            vec_state=self.venv.reset(noise),
-            obs_rms=rms_init((self.obs_dim,), self.device),
-            noise=noise,
-            env_steps=0,
-        )
+        with span("trainer.init"):
+            gen = torch.Generator().manual_seed(seed)
+            net = ActorCritic(self.obs_dim, self.n_actions, cfg.hidden_dim, generator=gen)
+            if self.mesh is not None:
+                net = split_trunk(net, self.mesh)
+            net = net.to(self.device)
+            noise = self._noise(seed)
+            return PPOTrainState(
+                params=net,
+                opt_state=adam(list(net.parameters()), cfg.lr, cfg.adam_eps,
+                               foreach=cfg.flat_optimizer),
+                vec_state=self.venv.reset(noise),
+                obs_rms=rms_init((self.obs_dim,), self.device),
+                noise=noise,
+                env_steps=0,
+            )
 
     @torch.no_grad()
     def policy(self, ts: PPOTrainState, obs, noise, deterministic: bool = True):
@@ -308,61 +310,66 @@ class PPOTrainer(Trainer):
 
         ``timer``, if given, is called with "rollout", "gae" and "sgd" as
         each phase ends (chip_smoke.py times the phases with CUDA events).
+        With ``utils.profiling``'s tracing on, the iteration is a
+        ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
+        each close just before their phase's ``timer`` call.
         """
         cfg = self.cfg
         mark = timer or (lambda phase: None)
-        vec_state, obs_rms, roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
-        mark("rollout")
+        with span("train_iter"):
+            vec_state, obs_rms, roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+            mark("rollout")
 
-        with torch.no_grad():
-            # Values of true successors in ONE batched forward (bootstrap for
-            # truncation; terminated steps are masked by (1-dw) inside GAE).
-            next_nobs = self._norm(obs_rms, roll.next_obs)
-            _, next_values = self._rollout_forward(
-                ts.params, next_nobs.reshape(-1, self.obs_dim)
+            with torch.no_grad(), span("gae"):
+                # Values of true successors in ONE batched forward (bootstrap for
+                # truncation; terminated steps are masked by (1-dw) inside GAE).
+                next_nobs = self._norm(obs_rms, roll.next_obs)
+                _, next_values = self._rollout_forward(
+                    ts.params, next_nobs.reshape(-1, self.obs_dim)
+                )
+                next_values = next_values.reshape(roll.value.shape)
+                adv, v_target = compute_gae(
+                    roll.reward, roll.value, next_values, roll.terminated, roll.done,
+                    cfg.gamma, cfg.gae_lambda,
+                )
+                # every rank's env columns, in rank order: the unsharded rollout
+                obs, action, logp, adv, v_target, ep_ret, ep_len, ep_done = self._gather(
+                    (roll.obs, roll.action, roll.logp, adv, v_target, ep_ret, ep_len, ep_done),
+                    axis=1)
+                adv = standardize(adv)  # rollout-wide (ref :236)
+
+                # The loss reads (obs, action, logp, adv, v_target): pack them into
+                # ONE [N, obs+4] matrix so each epoch's shuffle is one row gather.
+                # Actions round-trip exactly through f32.
+                n = cfg.batch_total
+                packed = torch.cat(
+                    [
+                        obs.reshape(n, self.obs_dim),
+                        action.reshape(n, 1).float(),
+                        logp.reshape(n, 1),
+                        adv.reshape(n, 1),
+                        v_target.reshape(n, 1),
+                    ],
+                    dim=1,
+                )
+            mark("gae")
+
+            with span("sgd"):
+                lr = self._lr(ts.env_steps)
+                for group in ts.opt_state.param_groups:
+                    group["lr"] = lr
+                perms = ts.noise.permutations(cfg.num_epochs, n)
+                metrics = self._sgd(ts, packed, perms)
+            mark("sgd")
+
+            new_ts = ts._replace(vec_state=vec_state, obs_rms=obs_rms, env_steps=ts.env_steps + n)
+            out = IterOut(
+                ep_return=ep_ret,
+                ep_length=ep_len,
+                ep_done=ep_done,
+                metrics=metrics | {"lr": torch.full((), lr, device=self.device)},
             )
-            next_values = next_values.reshape(roll.value.shape)
-            adv, v_target = compute_gae(
-                roll.reward, roll.value, next_values, roll.terminated, roll.done,
-                cfg.gamma, cfg.gae_lambda,
-            )
-            # every rank's env columns, in rank order: the unsharded rollout
-            obs, action, logp, adv, v_target, ep_ret, ep_len, ep_done = self._gather(
-                (roll.obs, roll.action, roll.logp, adv, v_target, ep_ret, ep_len, ep_done),
-                axis=1)
-            adv = standardize(adv)  # rollout-wide (ref :236)
-
-            # The loss reads (obs, action, logp, adv, v_target): pack them into
-            # ONE [N, obs+4] matrix so each epoch's shuffle is one row gather.
-            # Actions round-trip exactly through f32.
-            n = cfg.batch_total
-            packed = torch.cat(
-                [
-                    obs.reshape(n, self.obs_dim),
-                    action.reshape(n, 1).float(),
-                    logp.reshape(n, 1),
-                    adv.reshape(n, 1),
-                    v_target.reshape(n, 1),
-                ],
-                dim=1,
-            )
-        mark("gae")
-
-        lr = self._lr(ts.env_steps)
-        for group in ts.opt_state.param_groups:
-            group["lr"] = lr
-        perms = ts.noise.permutations(cfg.num_epochs, n)
-        metrics = self._sgd(ts, packed, perms)
-        mark("sgd")
-
-        new_ts = ts._replace(vec_state=vec_state, obs_rms=obs_rms, env_steps=ts.env_steps + n)
-        out = IterOut(
-            ep_return=ep_ret,
-            ep_length=ep_len,
-            ep_done=ep_done,
-            metrics=metrics | {"lr": torch.full((), lr, device=self.device)},
-        )
-        return new_ts, out
+            return new_ts, out
 
     # -- internals ------------------------------------------------------------
     def _norm(self, rms, obs):
@@ -388,25 +395,29 @@ class PPOTrainer(Trainer):
         cfg = self.cfg
         vec_state, obs_rms, noise = ts.vec_state, ts.obs_rms, ts.noise
         steps = []
-        for _ in range(cfg.rollout_steps):
-            nobs = self._norm(obs_rms, vec_state.obs)
-            logits, value = self._rollout_forward(ts.params, nobs)
-            # Gumbel-max: jax.random.categorical's own sampler
-            action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
-            logp, _ = categorical_logp_entropy(logits, action)
-            vec_state, tr = self.venv.step(vec_state, action, noise)
-            if cfg.normalize_obs:  # statistics of the whole env batch
-                obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
-            steps.append((
-                Rollout(
-                    obs=nobs, action=action, logp=logp, value=value,
-                    reward=tr.reward, next_obs=tr.next_obs,
-                    terminated=tr.terminated.float(), done=tr.done.float(),
-                ),
-                (tr.final_return, tr.final_length, tr.done),
-            ))
-        roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+        with span("rollout"):
+            for _ in range(cfg.rollout_steps):
+                with span("rollout.step"):
+                    with span("policy"):
+                        nobs = self._norm(obs_rms, vec_state.obs)
+                        logits, value = self._rollout_forward(ts.params, nobs)
+                        # Gumbel-max: jax.random.categorical's own sampler
+                        action = torch.argmax(logits + noise.gumbel(logits.shape),
+                                              dim=-1).to(torch.int32)
+                        logp, _ = categorical_logp_entropy(logits, action)
+                    vec_state, tr = self.venv.step(vec_state, action, noise)
+                    if cfg.normalize_obs:  # statistics of the whole env batch
+                        obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
+                    steps.append((
+                        Rollout(
+                            obs=nobs, action=action, logp=logp, value=value,
+                            reward=tr.reward, next_obs=tr.next_obs,
+                            terminated=tr.terminated.float(), done=tr.done.float(),
+                        ),
+                        (tr.final_return, tr.final_length, tr.done),
+                    ))
+            roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
+            stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
         return vec_state, obs_rms, roll, stats
 
     def _loss(self, net, obs, action, logp_old, adv, returns):

@@ -18,6 +18,7 @@ from typing import Any, NamedTuple
 import torch
 
 from gymrl_tpu_torch.envs.base import Env
+from gymrl_tpu_torch.utils.profiling import span
 
 
 class VecState(NamedTuple):
@@ -70,31 +71,32 @@ class VecEnv:
         )
 
     def step(self, vstate: VecState, action: torch.Tensor, noise) -> tuple[VecState, VecTransition]:
-        sr = self.env.step_batch(self.params, vstate.env_state, action, noise)
-        done = sr.terminated | sr.truncated
+        with span("env.step"):
+            sr = self.env.step_batch(self.params, vstate.env_state, action, noise)
+            done = sr.terminated | sr.truncated
 
-        ep_return = vstate.ep_return + sr.reward
-        ep_length = vstate.ep_length + 1
+            ep_return = vstate.ep_return + sr.reward
+            ep_length = vstate.ep_length + 1
 
-        reset_state, reset_obs = self.env.reset_batch(self.params, noise, self.num_envs)
-        new_env_state = tree_select(done, reset_state, sr.state)
-        new_obs = tree_select(done, reset_obs, sr.obs)
+            reset_state, reset_obs = self.env.reset_batch(self.params, noise, self.num_envs)
+            new_env_state = tree_select(done, reset_state, sr.state)
+            new_obs = tree_select(done, reset_obs, sr.obs)
 
-        transition = VecTransition(
-            obs=vstate.obs,
-            action=action,
-            reward=sr.reward,
-            next_obs=sr.obs,
-            terminated=sr.terminated,
-            truncated=sr.truncated,
-            done=done,
-            final_return=torch.where(done, ep_return, 0.0),
-            final_length=torch.where(done, ep_length, 0),
-        )
-        new_vstate = VecState(
-            env_state=new_env_state,
-            obs=new_obs,
-            ep_return=torch.where(done, 0.0, ep_return),
-            ep_length=torch.where(done, 0, ep_length),
-        )
-        return new_vstate, transition
+            transition = VecTransition(
+                obs=vstate.obs,
+                action=action,
+                reward=sr.reward,
+                next_obs=sr.obs,
+                terminated=sr.terminated,
+                truncated=sr.truncated,
+                done=done,
+                final_return=torch.where(done, ep_return, 0.0),
+                final_length=torch.where(done, ep_length, 0),
+            )
+            new_vstate = VecState(
+                env_state=new_env_state,
+                obs=new_obs,
+                ep_return=torch.where(done, 0.0, ep_return),
+                ep_length=torch.where(done, 0, ep_length),
+            )
+            return new_vstate, transition

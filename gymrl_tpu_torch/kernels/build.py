@@ -33,6 +33,8 @@ import time
 
 import numpy as np
 
+from gymrl_tpu_torch.utils.profiling import span
+
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-fmad=false",
          "-shared", "-Xcompiler", "-fPIC")
@@ -90,32 +92,35 @@ def load(name: str, source: str, defines: dict[str, str]) -> ctypes.CDLL:
         lib = _LOADED.get(memo)
         if lib is not None:
             return lib
-        nvcc = find_nvcc()
-        if nvcc is None:
-            raise KernelCompileError(
-                f"cannot build {name}: nvcc is not on PATH nor under $CUDA_HOME/bin")
-        version = _run([nvcc, "--version"])
-        if version.returncode != 0:
-            raise KernelCompileError(f"{nvcc} --version failed:\n{version.stderr}")
-        with open(source) as f:
-            text = f.read()
-        path = os.path.join(BUILD_DIR, f"{name}-{cache_key(text, flags, version.stdout)}.so")
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                done = _run([nvcc, *flags, "-o", tmp, source])
-                if done.returncode != 0:
-                    raise KernelCompileError(
-                        f"nvcc failed on {source} (exit {done.returncode}):\n"
-                        f"{done.stderr}{done.stdout}")
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            BUILD_SECONDS[name] = time.perf_counter() - t0
-        lib = ctypes.CDLL(path)
-        _LOADED[memo] = lib
-        return lib
+        with span("kernels.load", name) as load_span:
+            nvcc = find_nvcc()
+            if nvcc is None:
+                raise KernelCompileError(
+                    f"cannot build {name}: nvcc is not on PATH nor under $CUDA_HOME/bin")
+            version = _run([nvcc, "--version"])
+            if version.returncode != 0:
+                raise KernelCompileError(f"{nvcc} --version failed:\n{version.stderr}")
+            with open(source) as f:
+                text = f.read()
+            path = os.path.join(BUILD_DIR, f"{name}-{cache_key(text, flags, version.stdout)}.so")
+            compiled = not os.path.exists(path)
+            if compiled:
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                fd, tmp = tempfile.mkstemp(prefix=f".{name}-", suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                t0 = time.perf_counter()
+                try:
+                    done = _run([nvcc, *flags, "-o", tmp, source])
+                    if done.returncode != 0:
+                        raise KernelCompileError(
+                            f"nvcc failed on {source} (exit {done.returncode}):\n"
+                            f"{done.stderr}{done.stdout}")
+                    os.replace(tmp, path)
+                finally:
+                    if os.path.exists(tmp):
+                        os.unlink(tmp)
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+            load_span.note = f"{name} {'compiled' if compiled else 'cached'}"
+            lib = ctypes.CDLL(path)
+            _LOADED[memo] = lib
+            return lib
