@@ -25,14 +25,15 @@ only if all of them pass.
      and three timed ones. Prints env-steps/s, each phase's time from CUDA
      events (rollout; next-value forward plus GAE; SGD) and the peak device
      memory, and checks the step count, finite metrics, moved params and
-     Adam's step count. The SGD sweep is the graph path's (phase 20): the
-     first warm-up eager, the second a capture and its replay, the timed
-     ones replays; the captures and replays are printed and checked.
+     Adam's step count. The rollout and the SGD sweep are the graph path's
+     (phase 20): the first warm-up eager, the second a capture and its
+     replay, the timed ones replays; each graph's captures and replays are
+     printed and checked.
   3. Entry point: the CLI's ``ppo_lunarlander`` workload through
      ``TrainLoop`` for three iterations with its checkpoint in a temporary
      directory, then ``TrainLoop.test`` (five deterministic episodes), then
-     a restore of the saved checkpoint into a fresh state; its sweep graph's
-     one capture and two replays printed and checked.
+     a restore of the saved checkpoint into a fresh state; its rollout and
+     sweep graphs' one capture and two replays each printed and checked.
   4. Classic envs: B=8192 CartPole, Pendulum and continuous-lander states,
      made on the CPU from a fixed seed, stepped once on the card and once
      on the CPU with the same actions and draws. Each state field and the
@@ -215,14 +216,16 @@ only if all of them pass.
      time, traced and untraced). (b) The program's spans
      (``utils.profiling.span``) on ``ppo_lunarlander``, the benchmark's
      cell, ``phase_spans``: the set-up's spans; the mean host time of the
-     ``policy`` and ``env.step`` spans over 30 iterations, in which nothing
+     ``rollout.replay`` span (and of ``policy`` and ``env.step``, which run
+     only where the rollout is eager) over 30 iterations, in which nothing
      is captured or compiled again; and 3 iterations under
      ``torch.profiler`` read by ``utils.profiling.span_trace``: every
      kernel put down to the span of its launch call (or counted as having
      none in the trace, which only the hand-written kernels may lack), every
-     ``lander_step`` inside ``env.step`` and every ``clip_adam`` inside
-     ``sgd``, launch calls per rollout step, kernels per grad step, the
-     idle share inside ``rollout`` and the idle time by span.
+     ``lander_step`` inside ``rollout.replay`` and every ``clip_adam``
+     inside ``sgd``, launch calls per rollout step, kernels per rollout
+     replay and per grad step, the idle share inside ``rollout`` and the
+     idle time by span.
  18. The lander kernels (``gymrl_tpu_torch/kernels/lunarlander.cu``)
      against the plain path on the card, from the same inputs, at every
      batch the main path gives them (32, 64 and 8192 envs: the lander CLI
@@ -325,25 +328,30 @@ only if all of them pass.
      kernels and on the plain versions, at both shapes, and the host time of
      its parts (forward, head, backward, clip with Adam) by the host clock,
      from timing shims patched around the step's head and update.
- 20. The SGD sweep as one CUDA graph (``algos.base.SweepGraph``) against the
-     eager sweep. (a) One ``clip_adam`` launch of the ctypes library (its
-     own CUDA runtime, linked statically) captured on a side stream with
-     its step terms on the card (``kernels.ppo.device_terms``) and replayed
-     twice: the capture runs nothing, the replays equal two eager launches
-     to the bit. (b) The bench config, ``ppo_lunarlander`` and
-     ``ppo_cartpole``, 3 iterations each from ``init(0)`` with ``graphs``
-     off and on (the warm-up, the capture with its replay, a replay): every
-     state entry (params, ``exp_avg``, ``exp_avg_sq``, the step counts, the
-     env batch, the noise) and every metric equal to the bit, else params
-     and moments within ``ADAM_TOL`` and metrics within ``HEAD_RTOL`` with
-     all else equal (whether equal to the bit is printed); each update
-     kernel once per grad step on both paths, counted per replay on the
-     graph; one capture and two replays. Each path's SGD ms (CUDA events),
-     env-steps/s, launches per grad step (one sweep traced) and peak memory.
-     (c) On ``ppo_lunarlander`` both paths also save a checkpoint after
-     iteration 2 and, after iteration 3, restore it into ``init(1)`` and run
-     one more iteration: the graph path captures anew and the two still
-     agree under (b)'s rule.
+ 20. The rollout and the SGD sweep as CUDA graphs (``algos.base.RolloutGraph``,
+     ``SweepGraph``) against the eager ones. (a) One ``clip_adam`` launch
+     of the ctypes library (its own CUDA runtime, linked statically)
+     captured on a side stream with its step terms on the card
+     (``kernels.ppo.device_terms``) and replayed twice: the capture runs
+     nothing, the replays equal two eager launches to the bit. (b) The
+     bench config, ``ppo_lunarlander`` and ``ppo_cartpole``, 4 iterations
+     each from ``init(0)`` with ``graphs`` off and on (the warm-up, the
+     captures with their replays, two replays): the rows each iteration
+     hands to ``_sgd`` equal to the bit, and every state entry (params,
+     ``exp_avg``, ``exp_avg_sq``, the step counts, the env batch, the
+     noise's generator) and every metric equal to the bit, else params and
+     moments within ``ADAM_TOL`` and metrics within ``HEAD_RTOL`` with all
+     else equal (whether equal to the bit is printed); each update kernel
+     once per grad step and each lander kernel once per env step on both
+     paths, counted per replay on the graph; one capture and three replays
+     of each graph. Each path's rollout and SGD ms (CUDA events),
+     env-steps/s, launch calls and kernels per rollout step (one rollout
+     traced), launches per grad step (one sweep traced) and peak memory.
+     (c) On ``ppo_lunarlander`` and ``ppo_cartpole`` both paths also save a
+     checkpoint after iteration 2 and, after iteration 4, restore it into
+     ``init(1)`` and run one more iteration: both graphs capture anew (two
+     captures and four replays each) and the two paths still agree under
+     (b)'s rule.
   ``phase_solve`` (not in ``main``) trains ``ppo_lunarlander`` on the graph
   path through ``TrainLoop.train(..., seed=s)`` for seeds 0-2 to avg100 ≥
   200 and prints the env steps each took.
@@ -371,7 +379,7 @@ PHYS_WARM_STEPS = 90  # random-action steps until ~40% of landers touch the grou
 PHYS_ATOL = 1e-4
 PHYS_MAX_TIES = 8
 BENCH_TIMED_ITERS = 3
-BENCH_WARM_ITERS = 2  # the warm-up and the sweep's capture
+BENCH_WARM_ITERS = 2  # the warm-up and the graphs' capture
 ENTRY_ITERS = 3
 CLASSIC_ENVS = 8192
 CLASSIC_WARM_STEPS = 40
@@ -546,7 +554,7 @@ def phase_bench(device: torch.device, cfg=None, timed_iters: int = BENCH_TIMED_I
         "base_bytes": base_bytes,
         "peak_reserved_bytes": torch.cuda.max_memory_reserved(device) if cuda else None,
         "metrics": {k: float(v) for k, v in out.metrics.items()},
-        "sweep_graph": _sweep_graph_counts("phase 2", trainer, timed_iters + BENCH_WARM_ITERS),
+        "graphs": _graph_counts("phase 2", trainer, timed_iters + BENCH_WARM_ITERS),
     }
     log("phase 2 bench config: " + json.dumps(result))
 
@@ -601,7 +609,7 @@ def phase_entry(device: torch.device, iters: int = ENTRY_ITERS, episodes: int = 
         raise AssertionError("restored env_steps differ")
     result = {"env_steps": stats["env_steps"], "train_s": train_s, "test_episodes": episodes,
               "test_mean_reward": mean_reward, "test_s": test_s, "checkpoint_restored": True,
-              "sweep_graph": _sweep_graph_counts("phase 3", trainer, iters)}
+              "graphs": _graph_counts("phase 3", trainer, iters)}
     log("phase 3 entry point: " + json.dumps(result))
     return result
 
@@ -2666,14 +2674,15 @@ def phase_distributed(device: torch.device, cases=DIST_CASES, one_case: str = "b
 # -- phase 17: profile ------------------------------------------------------------
 PROFILE_CASES = ("bench", "ppo_lunarlander")
 SPAN_CASE = "ppo_lunarlander"  # the benchmark's cell: gymRL's preset, 32 envs x T 64
-SPAN_SETUP_ITERS = 3  # the eager sweep, the capture and its replay, a replay
+SPAN_SETUP_ITERS = 3  # the eager warm-up, the captures and their replays, a replay
 SPAN_WINDOW_ITERS = 30
 SPAN_PROFILED_ITERS = 3
 # The hand-written kernels by their names in a trace, with their keys in kernels.LAUNCHES.
 HAND_WRITTEN = {"lander_step": "lunarlander_step", "lander_reset": "lunarlander_reset",
                 "ppo_loss_fwd": "ppo_loss_fwd", "ppo_loss_bwd": "ppo_loss_bwd",
                 "grad_sq_norms": "grad_sq_norms", "clip_adam": "clip_adam"}
-SPAN_OF_KERNEL = {"lander_step": "env.step", "clip_adam": "sgd"}  # the span each must be in
+# The span each must be in, on the graph path (``env.step`` where the rollout is eager).
+SPAN_OF_KERNEL = {"lander_step": "rollout.replay", "clip_adam": "sgd"}
 
 
 def phase_profile(device: torch.device, cases=PROFILE_CASES) -> list[dict]:
@@ -2706,7 +2715,7 @@ def phase_profile(device: torch.device, cases=PROFILE_CASES) -> list[dict]:
                   "busy_share_untraced": stats["busy_ms"] / (untraced * 1e3),
                   "trace_bytes": trace_bytes, "stop_and_export_s": export_s,
                   "kernel_stats_s": stats_s}
-        result["sweep_graph"] = _sweep_graph_counts(f"phase 17 {name}", trainer, 4)
+        result["graphs"] = _graph_counts(f"phase 17 {name}", trainer, 4)
         log("phase 17 profile: " + json.dumps(result))
         if stats["kernels"] == 0 or trace_bytes == 0:
             raise AssertionError(f"{name}: the trace holds no kernel")
@@ -2721,6 +2730,12 @@ def _fetch_iter(trainer, ts):
     ts, out = trainer.train_iter(ts)
     out.ep_done.cpu(), out.ep_return.cpu()
     return ts
+
+
+def _mean_us(totals: dict, name: str) -> float | None:
+    """Mean host time of a span in µs (None: no such span)."""
+    n, total = totals.get(name, (0, 0.0))
+    return total / n * 1e6 if n else None
 
 
 def _span_totals(spans) -> dict:
@@ -2739,18 +2754,21 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
     benchmark's cell. Tracing on, a fresh trainer's set-up (``init`` and the
     iterations that warm up and capture the sweep): each span's count and
     seconds. Then ``window`` iterations, each with its host fetch: the mean
-    host time of a ``policy`` span and of an ``env.step`` span, and no
-    ``sgd.capture`` or compiling ``kernels.load`` among them. Then
+    host time of a ``rollout.replay`` span (and of a ``policy`` and an
+    ``env.step`` span, None under a replay, which opens neither), and no
+    ``rollout.capture``, ``sgd.capture`` or compiling ``kernels.load``
+    among them. Then
     ``profiled`` iterations under ``torch.profiler``, read by ``span_trace``:
     the kernels put down to spans, to no span, and with no launch call in
     the trace (these three must sum to the kernels traced; those with no
     launch call must be, if any, exactly the hand-written kernels the
-    program counted, ``kernels.LAUNCHES``); every ``lander_step`` inside an
-    ``env.step`` span and every ``clip_adam`` inside an ``sgd`` span unless
-    their launch calls are missing; the host launch calls inside ``rollout``
-    spans per env step; the kernels inside ``sgd`` spans per grad step; the
-    idle share of the device inside ``rollout`` spans, over the profiled
-    wall time; and the idle time by innermost span, the longest ten."""
+    program counted, ``kernels.LAUNCHES``); every ``lander_step`` inside a
+    ``rollout.replay`` span and every ``clip_adam`` inside an ``sgd`` span
+    unless their launch calls are missing; the host launch calls inside
+    ``rollout`` spans per env step; the kernels inside ``rollout.replay``
+    spans per iteration and inside ``sgd`` spans per grad step; the idle
+    share of the device inside ``rollout`` spans, over the profiled wall
+    time; and the idle time by innermost span, the longest ten."""
     from collections import Counter
 
     from gymrl_tpu_torch import kernels
@@ -2765,7 +2783,7 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
             ts = _fetch_iter(trainer, ts)
         _sync(device)
         setup = _span_totals(s for s in profiling.spans() if s.iteration == -1
-                             or s.name.startswith(("sgd.", "kernels.")))
+                             or s.name.startswith(("rollout.", "sgd.", "kernels.")))
         log(f"phase 17 spans {case} set-up: " + json.dumps(setup))
 
         profiling.clear()
@@ -2775,7 +2793,7 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
         spans = profiling.spans()
         totals = _span_totals(spans)
         rebuilt = [f"{s.name} [{s.note}]" for s in spans
-                   if s.name == "sgd.capture" or "compiled" in s.note]
+                   if s.name in ("rollout.capture", "sgd.capture") or "compiled" in s.note]
 
         profiling.clear()
         before = dict(kernels.LAUNCHES)
@@ -2804,8 +2822,8 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
               for k, where in SPAN_OF_KERNEL.items()}
     result = {
         "case": case,
-        "policy_us": totals["policy"][1] / totals["policy"][0] * 1e6,
-        "env_step_us": totals["env.step"][1] / totals["env.step"][0] * 1e6,
+        "rollout_replay_us": _mean_us(totals, "rollout.replay"),
+        "policy_us": _mean_us(totals, "policy"), "env_step_us": _mean_us(totals, "env.step"),
         "window_spans": totals, "rebuilt_in_window": rebuilt,
         "kernels_traced": len(got.kernels),
         "kernels_in_spans": sum(n for p, n in by_span.items() if p),
@@ -2817,6 +2835,8 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
         "launched_by_counter": launched, "inside_their_span": inside,
         "rollout_launches_per_step": sum("rollout" in p for *_, p in got.launches)
         / (profiled * cfg.rollout_steps),
+        "kernels_per_rollout_replay": sum(p is not None and "rollout.replay" in p
+                                          for *_, p in got.kernels) / profiled,
         "sgd_kernels_per_grad_step": sum(p is not None and "sgd" in p for *_, p in got.kernels)
         / (profiled * cfg.num_epochs * cfg.num_minibatches),
         "idle_in_rollout": got.idle_ns(t0, t1, inside="rollout") / (t1 - t0),
@@ -4000,21 +4020,29 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
     return out
 
 
-# -- phase 20: the captured sweep against the eager sweep ------------------------------
+# -- phase 20: the captured rollout and sweep against the eager ones ---------------------
 GRAPH_CASES = ("bench", "ppo_lunarlander", "ppo_cartpole")
-GRAPH_ITERS = 3  # the warm-up, the capture with its replay, one more replay
-GRAPH_RESTORE_CASE = "ppo_lunarlander"  # saved after iteration 2, restored after GRAPH_ITERS
+GRAPH_ITERS = 4  # the warm-up, the captures with their replays, two more replays
+# saved after iteration 2, restored into a fresh state after GRAPH_ITERS
+GRAPH_RESTORE_CASES = ("ppo_lunarlander", "ppo_cartpole")
 
 
-def _sweep_graph_counts(label: str, trainer, iters: int) -> dict:
-    """The captures and replays of ``trainer``'s SGD sweep graph, logged; on
-    the graph path, ``iters`` iterations from a fresh trainer must be the
-    warm-up, one capture and ``iters - 1`` replays."""
-    graph = trainer.sweep_graph
-    counts = {"captures": graph.captures if graph else 0, "replays": graph.replays if graph else 0}
-    log(f"{label} sweep graph: " + json.dumps(counts))
-    if trainer._graphed() and counts != {"captures": 1, "replays": iters - 1}:
-        raise AssertionError(f"{label}: {iters} iterations, but the sweep graph {counts}")
+def _holder_counts(holder) -> dict:
+    return {"captures": holder.captures if holder else 0,
+            "replays": holder.replays if holder else 0}
+
+
+def _graph_counts(label: str, trainer, iters: int) -> dict:
+    """The captures and replays of ``trainer``'s rollout and SGD sweep
+    graphs, logged; on the graph path, ``iters`` iterations from a fresh
+    trainer must be, for each, the warm-up, one capture and ``iters - 1``
+    replays."""
+    counts = {"rollout": _holder_counts(trainer.rollout_graph),
+              "sweep": _holder_counts(trainer.sweep_graph)}
+    log(f"{label} graphs: " + json.dumps(counts))
+    want = {"captures": 1, "replays": iters - 1}
+    if trainer._graphed() and counts != {"rollout": want, "sweep": want}:
+        raise AssertionError(f"{label}: {iters} iterations, but the graphs {counts}")
     return counts
 
 
@@ -4076,14 +4104,26 @@ def _graph_probe(device: torch.device) -> dict:
     return result
 
 
+def _launch_calls(prof) -> int:
+    """Host calls of a finished trace that launch device work (a kernel, or
+    a CUDA graph's kernels)."""
+    from gymrl_tpu_torch.utils.profiling import LAUNCH_CALL
+
+    cpu = torch.autograd.DeviceType.CPU
+    return sum(ev.device_type() == cpu and bool(LAUNCH_CALL.match(ev.name()))
+               for ev in prof.profiler.kineto_results.events())
+
+
 def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
                restore: bool) -> dict:
     """``iters`` iterations of case ``name`` from ``init(0)`` with
-    ``trainer.graphs = graphs``: each iteration's wall time, SGD ms (CUDA
-    events), metrics and launches, the peak memory, the state on the CPU;
-    then one sweep under ``trace`` (kernel launches per grad step). With
-    ``restore``, the state is saved after iteration 2 and, after the
-    iterations, restored into ``init(1)`` for one more iteration."""
+    ``trainer.graphs = graphs``: each iteration's wall time, rollout and SGD
+    ms (CUDA events), metrics, launches and the rows it hands to ``_sgd``
+    (on the CPU), the peak memory, the state on the CPU; then one rollout
+    and one sweep under ``trace`` (launch calls and kernels per env step,
+    kernels per grad step). With ``restore``, the state is saved after
+    iteration 2 and, after the iterations, restored into ``init(1)`` for
+    one more iteration."""
     from unittest import mock
 
     from gymrl_tpu_torch import kernels
@@ -4098,8 +4138,10 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     ts = trainer.init(0)
     seen, sgd = [], trainer._sgd
     clock = PhaseClock(device)
-    out = {"case": name, "graphs": graphs, "grad_steps": grad_steps, "wall_ms": [], "sgd_ms": [],
-           "launches": [], "metrics": []}
+    lander_steps = cfg.rollout_steps if cfg.env_name.startswith("LunarLander") else 0
+    out = {"case": name, "graphs": graphs, "grad_steps": grad_steps, "lander_steps": lander_steps,
+           "wall_ms": [], "rollout_ms": [], "sgd_ms": [], "launches": [], "metrics": [],
+           "rows": []}
     _sync(device)
     if cuda:
         torch.cuda.empty_cache()  # the reserved peak then counts this run's segments
@@ -4119,23 +4161,31 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
             ts, result = trainer.train_iter(ts, timer=clock.mark)
             _sync(device)
             out["wall_ms"].append((time.perf_counter() - t0) * 1e3)
-            out["sgd_ms"].append(clock.phase_ms()["sgd"])
-            out["launches"].append({k: kernels.LAUNCHES[k] for k in UPDATE_KERNELS})
+            phase_ms = clock.phase_ms()
+            out["rollout_ms"].append(phase_ms["rollout"])
+            out["sgd_ms"].append(phase_ms["sgd"])
+            out["launches"].append(dict(kernels.LAUNCHES))
             out["metrics"].append({k: float(v) for k, v in result.metrics.items()})
+            out["rows"].append(seen[-1][0].cpu())
             if restore and it == 1:
                 save_checkpoint(path, ts)
             if it == iters - 1:
                 out["state"] = _cpu_flat(ts)
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else None
-        # the caching allocator's segments, the graph's private pool among them
+        # the caching allocator's segments, the graphs' private pools among them
         out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(device) if cuda else None
         out["env_steps_per_s"] = cfg.batch_total / out["wall_ms"][iters - 1] * 1e3
         if restore:
             out["restored_state"] = _cpu_flat(ts)
-        held = trainer.sweep_graph
-        out["sweep_graph"] = {"captures": held.captures if held else 0,
-                              "replays": held.replays if held else 0}
+        out["rollout_graph"] = _holder_counts(trainer.rollout_graph)
+        out["sweep_graph"] = _holder_counts(trainer.sweep_graph)
         packed, perms = seen[-1]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp, device) as prof:
+            trainer._collect(ts)
+            _sync(device)
+    out["launch_calls_per_env_step"] = _launch_calls(prof) / cfg.rollout_steps
+    out["kernels_per_env_step"] = kernel_stats(prof)["kernels"] / cfg.rollout_steps
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp, device) as prof:
             trainer._sgd(ts, packed, perms)
@@ -4169,51 +4219,67 @@ def _graph_diff(eager: dict, graph: dict) -> dict:
 
 
 def phase_graph(device: torch.device, cases=GRAPH_CASES, iters: int = GRAPH_ITERS,
-                restore_case: str = GRAPH_RESTORE_CASE) -> dict:
+                restore_cases=GRAPH_RESTORE_CASES) -> dict:
     """Phase 20: (a) the capture probe; (b) per case, ``iters`` iterations
-    on the eager sweep and on the captured one from the same init and noise
-    (the graph path's warm-up, capture with replay, replay): every state
-    entry, the metrics and Adam's step counts equal to the bit, or params
-    and moments within phase 19 (b)'s ``ADAM_TOL`` and metrics within
-    ``HEAD_RTOL`` with all else equal; one launch of each update kernel per
-    grad step on both, per replay on the graph; each path's SGD ms,
-    env-steps/s, launches per grad step (profiler) and peak memory; (c) on
-    ``restore_case``, a checkpoint saved mid-run restored into a fresh state
-    captures anew and still matches the eager path restored the same way."""
+    with the eager rollout and sweep and with the captured ones from the
+    same init and noise (the graph path's warm-up, captures with their
+    replays, replays): the rows handed to ``_sgd`` at every iteration equal
+    to the bit; every state entry, the metrics and Adam's step counts equal
+    to the bit, or params and moments within phase 19 (b)'s ``ADAM_TOL``
+    and metrics within ``HEAD_RTOL`` with all else equal (the env batch and
+    the noise's generator always to the bit); one launch of each update
+    kernel per grad step and of each lander kernel per env step on both
+    paths, per replay on the graph; each path's rollout and SGD ms,
+    env-steps/s, launch calls and kernels per env step (profiler),
+    launches per grad step and peak memory; (c) on ``restore_cases``, a
+    checkpoint saved mid-run restored into a fresh state captures both
+    graphs anew and still matches the eager path restored the same way."""
     cuda = device.type == "cuda"
     result = {"probe": _graph_probe(device) if cuda else None, "cases": []}
     for name in cases:
-        restore = name == restore_case
+        restore = name in restore_cases
         eager = _graph_run(device, name, False, iters, restore)
         graph = _graph_run(device, name, True, iters, restore)
         checks = {"iterations": _graph_diff(eager.pop("state"), graph.pop("state"))}
         if restore:
             checks["restored"] = _graph_diff(eager.pop("restored_state"),
                                              graph.pop("restored_state"))
+        rows = [torch.equal(a, b) for a, b in zip(eager.pop("rows"), graph.pop("rows"))]
         metric_err = max(abs(a - b) / max(abs(a), 1e-30) for ea, ga in
                          zip(eager["metrics"], graph["metrics"]) for a, b in
                          ((ea[k], ga[k]) for k in ea))
-        row = {"case": name, "checks": checks, "metrics_rel_err": metric_err,
-               "bit_equal": metric_err == 0.0 and not any(c["differ"] for c in checks.values()),
-               **{path: {k: r[k] for k in ("wall_ms", "sgd_ms", "env_steps_per_s",
+        row = {"case": name, "checks": checks, "rows_equal": rows,
+               "metrics_rel_err": metric_err,
+               "bit_equal": metric_err == 0.0 and all(rows)
+               and not any(c["differ"] for c in checks.values()),
+               **{path: {k: r[k] for k in ("wall_ms", "rollout_ms", "sgd_ms", "env_steps_per_s",
+                                           "launch_calls_per_env_step", "kernels_per_env_step",
                                            "launches_per_grad_step", "peak_memory_bytes",
-                                           "peak_reserved_bytes", "base_bytes", "sweep_graph",
-                                           "launches")}
+                                           "peak_reserved_bytes", "base_bytes", "rollout_graph",
+                                           "sweep_graph", "launches")}
                   for path, r in (("eager", eager), ("graph", graph))}}
-        log("phase 20b sweep graph: " + json.dumps(row))
+        log("phase 20b graphs: " + json.dumps(row))
         for path, r in (("eager", eager), ("graph", graph)):
             for counts in r["launches"] if cuda else ():
                 _check_update_launches(f"phase 20 {name} {path}", counts, r["grad_steps"])
+                if any(counts[k] != r["lander_steps"] for k in LANDER_KERNELS):
+                    raise AssertionError(f"phase 20 {name} {path}: {r['lander_steps']} lander "
+                                         f"env steps, but launches {counts}")
         want = ({"captures": 2 if restore else 1, "replays": iters - 1 + int(restore)} if cuda
-                else {"captures": 0, "replays": 0})  # the CPU (a rehearsal) sweeps eagerly
-        if graph["sweep_graph"] != want or eager["sweep_graph"] != {"captures": 0, "replays": 0}:
-            raise AssertionError(f"phase 20 {name}: sweep graphs {graph['sweep_graph']} "
-                                 f"(want {want}), eager {eager['sweep_graph']}")
+                else {"captures": 0, "replays": 0})  # the CPU (a rehearsal) runs eagerly
+        none = {"captures": 0, "replays": 0}
+        for holder in ("rollout_graph", "sweep_graph"):
+            if graph[holder] != want or eager[holder] != none:
+                raise AssertionError(f"phase 20 {name}: {holder} {graph[holder]} (want {want}), "
+                                     f"eager {eager[holder]}")
+        if not all(rows):
+            raise AssertionError(f"phase 20 {name}: the rows handed to _sgd differ at "
+                                 f"iterations {[i for i, ok in enumerate(rows) if not ok]}")
         for label, c in checks.items():
             exact = [k for k in c["differ"] if not k.startswith("ts.params.")
                      and not k.endswith((".exp_avg", ".exp_avg_sq"))]
             if exact or max(c["max_err"].values()) > ADAM_TOL or metric_err > HEAD_RTOL:
-                raise AssertionError(f"phase 20 {name} {label}: the captured sweep differs: "
+                raise AssertionError(f"phase 20 {name} {label}: the graph path differs: "
                                      f"{exact[:8]}, {c['max_err']}, metrics {metric_err}")
         result["cases"].append(row)
     return result
@@ -4244,8 +4310,8 @@ def phase_solve(device: torch.device | None = None, seeds=(0, 1, 2),
         r = {"seed": seed, "solved": stats["solved"], "env_steps": stats["env_steps"],
              "avg100": stats["avg100"], "episodes": stats["episodes"],
              "wall_s": time.perf_counter() - t0,
-             "graph": {"captures": trainer.sweep_graph.captures,
-                       "replays": trainer.sweep_graph.replays}}
+             "graphs": {"rollout": _holder_counts(trainer.rollout_graph),
+                        "sweep": _holder_counts(trainer.sweep_graph)}}
         log("solve: " + json.dumps(r))
         out.append(r)
     return out

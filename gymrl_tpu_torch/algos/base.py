@@ -9,11 +9,12 @@ A ``Trainer`` exposes:
 The JAX trainers are pure and jitted; here ``train_iter`` updates the
 parameters and optimizer held by ``ts`` in place (PyTorch's idiom),
 returning the state with its new env batch and counters. It runs eagerly,
-but for one part: on a CUDA device without a mesh, while ``trainer.graphs``
-is True (the default), ``PPOTrainer``'s SGD sweep is one replay of a
-captured CUDA graph (``SweepGraph``), the counterpart of the JAX trainer's
-jitted epoch × minibatch scan. The rollout, everything under a mesh, the CPU
-and the other trainers' updates run eagerly.
+but for two parts: on a CUDA device without a mesh, while ``trainer.graphs``
+is True (the default), ``PPOTrainer``'s T-step rollout (``RolloutGraph``)
+and its SGD sweep (``SweepGraph``) are each one replay of a captured CUDA
+graph, the counterparts of the JAX trainer's jitted rollout scan and epoch ×
+minibatch scan. Everything under a mesh, the CPU and the other trainers'
+rollouts and updates run eagerly.
 
 Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
 env batch and computes its share of every minibatch. A rank's loss is its
@@ -30,6 +31,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from gymrl_tpu_torch import kernels
 from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
@@ -235,92 +237,45 @@ def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
     return opt
 
 
+def param_key(net: nn.Module) -> tuple:
+    """Each of ``net``'s params by name, address and size: what a captured
+    graph that reads them needs to hold (a restore into a fresh state
+    replaces them)."""
+    return tuple((n, p.data_ptr(), p.numel()) for n, p in net.named_parameters())
+
+
 def graph_key(net: nn.Module, opt: torch.optim.Adam) -> tuple[tuple, tuple]:
     """What a captured sweep of ``net`` and its Adam ``opt`` reads and writes
     outside its own pool and buffers: ``kernels.ppo.adam_key`` (Adam's state
     and group by identity, the options but the lr, the addresses of params,
-    ``exp_avg`` and ``exp_avg_sq``, the step tensors) and each of the net's
-    params by name, address and size. With it, the objects the key names by
-    identity, to be held while the key is."""
+    ``exp_avg`` and ``exp_avg_sq``, the step tensors) and ``param_key(net)``.
+    With it, the objects the key names by identity, to be held while the key
+    is."""
     key, holds = ppo_kernels.adam_key(opt)
-    params = tuple((n, p.data_ptr(), p.numel()) for n, p in net.named_parameters())
-    return (key, params), (*holds, list(net.parameters()))
+    return (key, param_key(net)), (*holds, list(net.parameters()))
 
 
-class SweepGraph:
-    """One iteration's SGD sweep as ONE replay of a captured CUDA graph: the
-    port's counterpart of the jit cache of the JAX ``Trainer.train_iter``
-    (``gymrl_tpu/algos/base.py``), whose executable runs the whole epoch ×
-    minibatch scan. The kernels and their order are the eager sweep's; only
-    who issues the launches changes.
+class CapturedGraph:
+    """What ``SweepGraph`` and ``RolloutGraph`` share: a side stream that
+    warms up and captures, the capture itself, and the counters.
 
-    ``run(net, opt, body, inputs)`` copies ``inputs`` into the holder's
-    static buffers and runs ``body(static)``, the eager sweep of ``steps``
-    Adam steps of ``opt`` on ``net``, returning one tensor:
-      * the first run is a warm-up: ``body`` runs eagerly on the side stream
-        that captures later, so what PyTorch and the kernels make lazily per
-        stream (cuBLAS's workspace, the reductions' scratch) exists before
-        any capture;
-      * a run whose ``graph_key`` differs from the captured one (a restore's
-        ``load_state_dict`` replaces Adam's state) captures ``body`` anew on
-        that stream, never replaying a stale graph, then replays it; later
-        runs replay it. A failed capture raises.
-    Capture records the launches and runs none, so the host effects of the
-    body are kept out of it or taken back, and applied once per replay:
-      * Adam's CPU step counts: under ``kernels.ppo.device_terms`` grad step
-        i's ``clip_adam`` reads its ``(step_size, bc2)`` from row i of a
-        buffer on the card and counts nothing; before each replay the rows
-        come from ``kernels.ppo.adam_run_terms`` through pinned memory, and
-        after it the counts are set where ``steps`` more leave them;
-      * ``kernels.LAUNCHES``: the capture's increments are taken back, and
-        each replay adds them;
-      * ``opt.zero_grad(set_to_none=True)``: every step's backward makes its
-        grads in the graph's pool; after a replay ``p.grad`` is the last
-        step's, as after the eager sweep.
-    The returned tensor is a copy: the next replay overwrites the graph's.
-    Each route is a span of ``utils.profiling``: ``sgd.warmup``,
-    ``sgd.capture``, ``sgd.replay``.
-    """
+    The first run of a holder is a warm-up: its body runs eagerly on the side
+    stream that captures later, so what PyTorch and the kernels make lazily
+    per stream or per process (cuBLAS's workspace, the reductions' scratch,
+    the kernels' libraries) exists before any capture. A capture records the
+    launches and runs none; ``kernels.LAUNCHES``' increments made while
+    capturing are taken back, and each replay adds them. A failed capture
+    raises. ``captures`` and ``replays`` count how often the graph route
+    engaged."""
 
-    def __init__(self, device: torch.device, steps: int):
-        self.device, self.steps = device, steps
+    def __init__(self, device: torch.device):
+        self.device = device
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
-        self.static: dict[str, torch.Tensor] = {}
-        self.terms = torch.empty((steps, 2), dtype=torch.float32, device=device)
-        self.host_terms = torch.empty((steps, 2), dtype=torch.float32, pin_memory=self.cuda)
-        self.copied = None  # the event after the last copy out of host_terms
         self.warm = False
-        self.graph = self.out = self.key = self.holds = None
+        self.graph = self.key = self.holds = None
         self.launches: dict[str, int] = {}
-        self.grads: list[torch.Tensor] = []
         self.captures = self.replays = 0
-
-    def run(self, net: nn.Module, opt: torch.optim.Adam,
-            body: Callable[[dict[str, torch.Tensor]], torch.Tensor],
-            inputs: dict[str, torch.Tensor]) -> torch.Tensor:
-        for name, x in inputs.items():
-            held = self.static.get(name)
-            if held is None or held.shape != x.shape or held.dtype != x.dtype:
-                held = self.static[name] = torch.empty_like(x)
-                self.graph = None  # it reads the buffer this one replaces
-            held.copy_(x)
-        if not self.warm:
-            with span("sgd.warmup"), self._side():
-                out = body(self.static)
-            self._join()
-            if self.cuda:  # made on the side stream: kept from its pool while the current reads it
-                out.record_stream(torch.cuda.current_stream(self.device))
-            self.warm = True
-            return out
-        key, holds = graph_key(net, opt)
-        if self.graph is None or key != self.key:
-            self.graph = self.out = None  # its pool goes with its last tensors
-            with span("sgd.capture"):
-                self._capture(net, opt, body)
-            self.key, self.holds = key, holds
-        with span("sgd.replay"):
-            return self._replay(net, opt)
 
     def _side(self):
         """The side stream as the current one, after the work queued so far."""
@@ -334,23 +289,116 @@ class SweepGraph:
         if self.cuda:
             torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
-    def _capture(self, net: nn.Module, opt: torch.optim.Adam, body) -> None:
-        opt.zero_grad(set_to_none=True)  # each backward makes its grads in the graph's pool
+    def _warm_up(self, body: Callable[[], Any]) -> Any:
+        """``body()`` run eagerly on the side stream; its tensors kept from
+        the side stream's pool while the current stream reads them."""
+        with self._side():
+            out = body()
+        self._join()
+        if self.cuda:
+            current = torch.cuda.current_stream(self.device)
+            for x in tree_flatten(out)[0]:
+                if isinstance(x, torch.Tensor):
+                    x.record_stream(current)
+        self.warm = True
+        return out
+
+    def _record(self, body: Callable[[], Any], generators=()) -> tuple[Any, Any]:
+        """``(graph, out)``: ``body()`` captured on the side stream, the
+        random ``generators`` it draws from registered with the graph, so
+        that each replay draws from their offsets at the time and advances
+        them as the eager body would."""
         if self.cuda:
             torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
         before = dict(kernels.LAUNCHES)
         try:
-            with self._side(), ppo_kernels.device_terms(self.terms) as run:
+            with self._side():
                 graph.capture_begin()
                 try:
-                    out = body(self.static)
+                    out = body()
                 finally:
                     graph.capture_end()
         finally:
             self.launches = {k: kernels.LAUNCHES[k] - n for k, n in before.items()}
             kernels.LAUNCHES.update(before)
         self._join()
+        return graph, out
+
+    def _replay_graph(self) -> None:
+        self.graph.replay()
+        kernels.add_launches(self.launches)
+        self.replays += 1
+
+
+class SweepGraph(CapturedGraph):
+    """One iteration's SGD sweep as ONE replay of a captured CUDA graph: the
+    port's counterpart of the jit cache of the JAX ``Trainer.train_iter``
+    (``gymrl_tpu/algos/base.py``), whose executable runs the whole epoch ×
+    minibatch scan. The kernels and their order are the eager sweep's; only
+    who issues the launches changes.
+
+    ``run(net, opt, body, inputs)`` copies ``inputs`` into the holder's
+    static buffers and runs ``body(static)``, the eager sweep of ``steps``
+    Adam steps of ``opt`` on ``net``, returning one tensor:
+      * the first run is ``CapturedGraph``'s warm-up;
+      * a run whose ``graph_key`` differs from the captured one (a restore's
+        ``load_state_dict`` replaces Adam's state) captures ``body`` anew on
+        that stream, never replaying a stale graph, then replays it; later
+        runs replay it.
+    Capture records the launches and runs none, so the host effects of the
+    body are kept out of it or taken back, and applied once per replay:
+      * Adam's CPU step counts: under ``kernels.ppo.device_terms`` grad step
+        i's ``clip_adam`` reads its ``(step_size, bc2)`` from row i of a
+        buffer on the card and counts nothing; before each replay the rows
+        come from ``kernels.ppo.adam_run_terms`` through pinned memory, and
+        after it the counts are set where ``steps`` more leave them;
+      * ``kernels.LAUNCHES``, as ``CapturedGraph`` takes them back;
+      * ``opt.zero_grad(set_to_none=True)``: every step's backward makes its
+        grads in the graph's pool; after a replay ``p.grad`` is the last
+        step's, as after the eager sweep.
+    The returned tensor is a copy: the next replay overwrites the graph's.
+    Each route is a span of ``utils.profiling``: ``sgd.warmup``,
+    ``sgd.capture``, ``sgd.replay``.
+    """
+
+    def __init__(self, device: torch.device, steps: int):
+        super().__init__(device)
+        self.steps = steps
+        self.static: dict[str, torch.Tensor] = {}
+        self.terms = torch.empty((steps, 2), dtype=torch.float32, device=device)
+        self.host_terms = torch.empty((steps, 2), dtype=torch.float32, pin_memory=self.cuda)
+        self.copied = None  # the event after the last copy out of host_terms
+        self.out = None
+        self.grads: list[torch.Tensor] = []
+
+    def run(self, net: nn.Module, opt: torch.optim.Adam,
+            body: Callable[[dict[str, torch.Tensor]], torch.Tensor],
+            inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+        for name, x in inputs.items():
+            held = self.static.get(name)
+            if held is None or held.shape != x.shape or held.dtype != x.dtype:
+                held = self.static[name] = torch.empty_like(x)
+                self.graph = None  # it reads the buffer this one replaces
+            held.copy_(x)
+        if not self.warm:
+            with span("sgd.warmup"):
+                return self._warm_up(lambda: body(self.static))
+        key, holds = graph_key(net, opt)
+        if self.graph is None or key != self.key:
+            self.graph = self.out = None  # its pool goes with its last tensors
+            with span("sgd.capture"):
+                self._capture(net, opt, body)
+            self.key, self.holds = key, holds
+        with span("sgd.replay"):
+            return self._replay(net, opt)
+
+    def _capture(self, net: nn.Module, opt: torch.optim.Adam, body) -> None:
+        opt.zero_grad(set_to_none=True)  # each backward makes its grads in the graph's pool
+        with ppo_kernels.device_terms(self.terms) as run:
+            graph, out = self._record(lambda: body(self.static))
         if run.taken != self.steps:
             raise RuntimeError(f"the captured sweep stepped Adam {run.taken} times on the "
                                f"step terms, not {self.steps}")
@@ -367,14 +415,81 @@ class SweepGraph:
         if self.cuda:
             self.copied = torch.cuda.Event()
             self.copied.record()
-        self.graph.replay()
+        self._replay_graph()
         for state in opt.state.values():
             state["step"].fill_(count)
-        kernels.add_launches(self.launches)
         for p, g in zip(net.parameters(), self.grads):
             p.grad = g
-        self.replays += 1
         return self.out.clone()
+
+
+class RolloutGraph(CapturedGraph):
+    """PPO's T-step rollout as ONE replay of a captured CUDA graph: the
+    port's counterpart of the JAX trainer's jitted rollout scan. The kernels
+    and their order are the eager rollout's (the forward, the Gumbel draw,
+    the log-prob, the env's step, reset draws, reset and selects, the
+    stacks); only who issues the launches changes.
+
+    ``run(net, noise, carry, body)`` runs ``body(carry) -> (carry', out)``,
+    the eager rollout of ``net`` drawing from ``noise`` (a plain ``Noise``),
+    and returns ``(carry', out)``:
+      * the first run is ``CapturedGraph``'s warm-up;
+      * a run whose key differs from the captured one (``param_key(net)``,
+        the noise's generator by identity, the carry's structure, shapes and
+        dtypes) captures ``body`` anew, never replaying a stale graph, then
+        replays it; later runs replay it.
+    The carry (a tree of tensors) lives in static buffers the graph reads;
+    the captured body ends by copying ``carry'`` into them, so after a
+    replay they hold ``carry'`` and are what ``run`` returns. The next run's
+    carry is then those same tensors and nothing is copied; a carry that is
+    not (a restore, an external reset: decided by identity) is copied in
+    first. ``out`` lives in the graph's pool and the next replay overwrites
+    it: consume or copy it before then.
+
+    The noise's generator is registered with the graph: each replay draws
+    from its offset at the time and advances it as the eager rollout would,
+    and the capture draws nothing, so the stream of draws (epoch
+    permutations, a checkpoint's generator state) is the eager one's. Each
+    route is a span of ``utils.profiling``: ``rollout.warmup``,
+    ``rollout.capture``, ``rollout.replay``.
+    """
+
+    def __init__(self, device: torch.device):
+        super().__init__(device)
+        self.static: list[torch.Tensor] = []
+        self.out = None
+
+    def run(self, net: nn.Module, noise: Noise, carry: Any,
+            body: Callable[[Any], tuple[Any, Any]]) -> tuple[Any, Any]:
+        if not self.warm:
+            with span("rollout.warmup"):
+                return self._warm_up(lambda: body(carry))
+        leaves, spec = tree_flatten(carry)
+        key = (param_key(net), id(noise.generator), spec,
+               tuple((x.shape, x.dtype) for x in leaves))
+        if self.graph is None or key != self.key:
+            self.graph = self.out = None  # its pool goes with its last tensors
+            self.static = [torch.empty_like(x) for x in leaves]
+        for held, x in zip(self.static, leaves):
+            if held is not x:
+                held.copy_(x)
+        if self.graph is None:
+            with span("rollout.capture"):
+                self.graph, self.out = self._record(lambda: self._carried(body, spec),
+                                                    [noise.generator])
+            self.key, self.holds = key, (list(net.parameters()), noise.generator)
+            self.captures += 1
+        with span("rollout.replay"):
+            self._replay_graph()
+        return tree_unflatten(self.static, spec), self.out
+
+    def _carried(self, body, spec) -> Any:
+        """``body`` on the static carry, ending with ``carry'`` copied into it."""
+        carry, out = body(tree_unflatten(self.static, spec))
+        pairs = [(a, b) for a, b in zip(self.static, tree_flatten(carry)[0]) if a is not b]
+        if pairs:
+            torch._foreach_copy_([a for a, _ in pairs], [b for _, b in pairs])
+        return out
 
 
 def assert_flat_tp_ok(mesh) -> None:
@@ -396,13 +511,14 @@ class Trainer:
         self.device = resolve_device(device if mesh is None else mesh.device_for(device))
         n = getattr(cfg, "num_envs", None)
         self.local_envs = n if mesh is None else mesh.local_count(n, "num_envs")
-        # Whether a trainer that captures its SGD sweep (PPOTrainer, on a CUDA
-        # device without a mesh) replays it as a CUDA graph (SweepGraph); False
-        # runs it eagerly. The counterpart of the JAX Trainer's ``donate``.
+        # Whether a trainer that captures its rollout and SGD sweep (PPOTrainer,
+        # on a CUDA device without a mesh) replays them as CUDA graphs
+        # (RolloutGraph, SweepGraph); False runs them eagerly. The counterpart
+        # of the JAX Trainer's ``donate``.
         self.graphs = True
 
     def _graphed(self) -> bool:
-        """Whether the SGD sweep runs as a CUDA graph here."""
+        """Whether the rollout and the SGD sweep run as CUDA graphs here."""
         return self.graphs and self.device.type == "cuda" and self.mesh is None
 
     # -- the mesh's hooks: identities without one -------------------------------

@@ -30,6 +30,7 @@ way (``split_trunk``), as the JAX trainer's layout does.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -40,7 +41,7 @@ from torch import nn
 from torch.func import functional_call
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, SweepGraph, Trainer, adam, assert_flat_tp_ok, clip_adam_,
+    IterOut, PhaseTimer, RolloutGraph, SweepGraph, Trainer, adam, assert_flat_tp_ok, clip_adam_,
 )
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -92,9 +93,10 @@ class PPOConfig:
     # same math, fewer and wider kernels. Off: one update per tensor.
     flat_optimizer: bool = False
     # XLA scan-unroll knobs of the reference. Accepted so configs carry over;
-    # they change nothing here: on a CUDA device without a mesh the whole SGD
-    # sweep is one CUDA graph (``trainer.graphs``, ``algos.base.SweepGraph``),
-    # and the rollout, and the sweep under a mesh or on the CPU, are Python loops.
+    # they change nothing here: on a CUDA device without a mesh the rollout and
+    # the SGD sweep are each one CUDA graph (``trainer.graphs``,
+    # ``algos.base.RolloutGraph`` and ``SweepGraph``), and under a mesh or on
+    # the CPU both are Python loops.
     sgd_unroll: int = 1
     rollout_unroll: int = 1
 
@@ -272,6 +274,7 @@ class PPOTrainer(Trainer):
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
         self.sweep_graph: SweepGraph | None = None  # made at the first sweep it runs
+        self.rollout_graph: RolloutGraph | None = None  # made at the first rollout it runs
 
     # -- API ------------------------------------------------------------------
     def init(self, seed: int = 0) -> PPOTrainState:
@@ -313,6 +316,12 @@ class PPOTrainer(Trainer):
         With ``utils.profiling``'s tracing on, the iteration is a
         ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
         each close just before their phase's ``timer`` call.
+
+        Where the rollout is a graph replay (``_collect``), the returned
+        state's ``vec_state`` and ``obs_rms`` are the graph's static carry:
+        the next replay overwrites them in place, so a caller that keeps the
+        state of an earlier iteration copies them. The ``IterOut``'s
+        episode statistics are copies the next iteration leaves alone.
         """
         cfg = self.cfg
         mark = timer or (lambda phase: None)
@@ -392,33 +401,55 @@ class PPOTrainer(Trainer):
 
     @torch.no_grad()
     def _collect(self, ts: PPOTrainState):
-        cfg = self.cfg
-        vec_state, obs_rms, noise = ts.vec_state, ts.obs_rms, ts.noise
-        steps = []
+        """The T-step rollout: ``(vec_state, obs_rms, Rollout, (final_return,
+        final_length, done))``. On a CUDA device without a mesh, while
+        ``graphs`` is on and the noise is a plain ``Noise``, one replay of a
+        captured CUDA graph (``RolloutGraph``; its first run is the eager
+        warm-up), whose ``Rollout`` lives in the graph's pool until the next
+        replay and whose episode statistics are handed out as copies; else
+        the eager loop (a test's replay of the JAX keys, ``ShardedNoise``)."""
         with span("rollout"):
-            for _ in range(cfg.rollout_steps):
-                with span("rollout.step"):
-                    with span("policy"):
-                        nobs = self._norm(obs_rms, vec_state.obs)
-                        logits, value = self._rollout_forward(ts.params, nobs)
-                        # Gumbel-max: jax.random.categorical's own sampler
-                        action = torch.argmax(logits + noise.gumbel(logits.shape),
-                                              dim=-1).to(torch.int32)
-                        logp, _ = categorical_logp_entropy(logits, action)
-                    vec_state, tr = self.venv.step(vec_state, action, noise)
-                    if cfg.normalize_obs:  # statistics of the whole env batch
-                        obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
-                    steps.append((
-                        Rollout(
-                            obs=nobs, action=action, logp=logp, value=value,
-                            reward=tr.reward, next_obs=tr.next_obs,
-                            terminated=tr.terminated.float(), done=tr.done.float(),
-                        ),
-                        (tr.final_return, tr.final_length, tr.done),
-                    ))
-            roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-            stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-        return vec_state, obs_rms, roll, stats
+            carry = (ts.vec_state, ts.obs_rms)
+            body = functools.partial(self._rollout, ts.params, ts.noise)
+            if self._graphed() and type(ts.noise) is Noise:
+                if self.rollout_graph is None:
+                    self.rollout_graph = RolloutGraph(self.device)
+                (vec_state, obs_rms), (roll, stats) = self.rollout_graph.run(
+                    ts.params, ts.noise, carry, body)
+                stats = tuple(x.clone() for x in stats)  # the next replay overwrites the graph's
+            else:
+                (vec_state, obs_rms), (roll, stats) = body(carry)
+            return vec_state, obs_rms, roll, stats
+
+    def _rollout(self, net, noise, carry):
+        """The eager rollout from ``carry = (vec_state, obs_rms)``:
+        ``(carry', (Rollout, stats))``, every field stacked over the T steps."""
+        cfg = self.cfg
+        vec_state, obs_rms = carry
+        steps = []
+        for _ in range(cfg.rollout_steps):
+            with span("rollout.step"):
+                with span("policy"):
+                    nobs = self._norm(obs_rms, vec_state.obs)
+                    logits, value = self._rollout_forward(net, nobs)
+                    # Gumbel-max: jax.random.categorical's own sampler
+                    action = torch.argmax(logits + noise.gumbel(logits.shape),
+                                          dim=-1).to(torch.int32)
+                    logp, _ = categorical_logp_entropy(logits, action)
+                vec_state, tr = self.venv.step(vec_state, action, noise)
+                if cfg.normalize_obs:  # statistics of the whole env batch
+                    obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
+                steps.append((
+                    Rollout(
+                        obs=nobs, action=action, logp=logp, value=value,
+                        reward=tr.reward, next_obs=tr.next_obs,
+                        terminated=tr.terminated.float(), done=tr.done.float(),
+                    ),
+                    (tr.final_return, tr.final_length, tr.done),
+                ))
+        roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
+        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+        return (vec_state, obs_rms), (roll, stats)
 
     def _loss(self, net, obs, action, logp_old, adv, returns):
         """The minibatch loss and its metrics: the net (f32, or bf16 with
