@@ -225,7 +225,12 @@ only if all of them pass.
      ``lander_step`` inside ``rollout.replay`` and every ``clip_adam``
      inside ``sgd``, launch calls per rollout step, kernels per rollout
      replay and per grad step, the idle share inside ``rollout`` and the
-     idle time by span.
+     idle time by span. (c) The same on ``ppo_lstm_lunarlander`` (eager:
+     every ``lander_step`` inside ``env.step``), over 5 window iterations,
+     with at least 99% of its kernels put down to a span; both cases give
+     the kernels, device ms and launch calls an iteration under each of
+     ``mhc``, ``mhc.sinkhorn``, ``rnd``, ``rnn.unroll``, ``policy``,
+     ``env.step``, ``rollout``, ``gae`` and ``sgd``.
  18. The lander kernels (``gymrl_tpu_torch/kernels/lunarlander.cu``)
      against the plain path on the card, from the same inputs, at every
      batch the main path gives them (32, 64 and 8192 envs: the lander CLI
@@ -2683,6 +2688,12 @@ HAND_WRITTEN = {"lander_step": "lunarlander_step", "lander_reset": "lunarlander_
                 "grad_sq_norms": "grad_sq_norms", "clip_adam": "clip_adam"}
 # The span each must be in, on the graph path (``env.step`` where the rollout is eager).
 SPAN_OF_KERNEL = {"lander_step": "rollout.replay", "clip_adam": "sgd"}
+SPAN_LSTM_CASE = "ppo_lstm_lunarlander"  # eager: the mHC backbone, Sinkhorn, RND, the GRU
+SPAN_LSTM_WINDOW_ITERS = 5
+SPAN_MIN_SHARE = 0.99  # of the traced kernels put down to a span
+# The spans whose kernels, device time and launch calls an iteration phase 17 reports.
+SPAN_READ = ("mhc", "mhc.sinkhorn", "rnd", "rnn.unroll", "policy", "env.step", "rollout", "gae",
+             "sgd")
 
 
 def phase_profile(device: torch.device, cases=PROFILE_CASES) -> list[dict]:
@@ -2813,13 +2824,22 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
         profiling.clear()
 
     cfg = trainer.cfg
+    replayed = getattr(trainer, "rollout_graph", None) is not None
+    span_of_kernel = {**SPAN_OF_KERNEL,
+                      "lander_step": "rollout.replay" if replayed else "env.step"}
     ends = [b for _, _, b, _ in got.spans] + [b for _, _, b, _ in got.kernels]
     t0, t1 = min(a for _, a, _, _ in got.spans), max(ends)
     by_span = got.kernels_by_span()
     lost = Counter(n for n, _, _, p in got.kernels if p is None)
     own = {k: sum(n for name, n in lost.items() if k in name) for k in HAND_WRITTEN}
     inside = {k: sum(k in n and p is not None and where in p for n, _, _, p in got.kernels)
-              for k, where in SPAN_OF_KERNEL.items()}
+              for k, where in span_of_kernel.items()}
+    under = {name: {"kernels": sum(p is not None and name in p for *_, p in got.kernels)
+                    / profiled,
+                    "device_ms": sum(b - a for _, a, b, p in got.kernels
+                                     if p is not None and name in p) / 1e6 / profiled,
+                    "launch_calls": sum(name in p for *_, p in got.launches) / profiled}
+             for name in SPAN_READ}
     result = {
         "case": case,
         "rollout_replay_us": _mean_us(totals, "rollout.replay"),
@@ -2831,6 +2851,7 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
         "kernels_without_launch_call": sum(lost.values()),
         "kernels_without_launch_call_by_name": dict(lost.most_common(10)),
         "kernels_by_span": {str(p): n for p, n in by_span.most_common()},
+        "per_iteration_under": under,
         "launch_calls": dict(calls),
         "launched_by_counter": launched, "inside_their_span": inside,
         "rollout_launches_per_step": sum("rollout" in p for *_, p in got.launches)
@@ -2850,10 +2871,13 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
     if (result["kernels_in_spans"] + result["kernels_outside_spans"]
             + result["kernels_without_launch_call"] != result["kernels_traced"]):
         raise AssertionError(f"{case}: the kernels put down do not sum to those traced")
+    if result["kernels_in_spans"] < SPAN_MIN_SHARE * result["kernels_traced"]:
+        raise AssertionError(f"{case}: {result['kernels_in_spans']} of "
+                             f"{result['kernels_traced']} kernels put down to a span")
     if sum(own.values()) != result["kernels_without_launch_call"]:
         raise AssertionError(f"{case}: kernels with no launch call in the trace that the "
                              f"program did not write: {dict(lost)}")
-    for k, where in SPAN_OF_KERNEL.items():
+    for k, where in span_of_kernel.items():
         want = launched[HAND_WRITTEN[k]]
         if inside[k] + own[k] != want or own[k] not in (0, want):
             raise AssertionError(f"{case}: {want} {k} launched, {inside[k]} inside {where} "
@@ -4418,6 +4442,7 @@ def main() -> int:
     timed(16, phase_distributed, device)
     timed(17, phase_profile, device)
     timed(17, phase_spans, device)
+    timed(17, phase_spans, device, SPAN_LSTM_CASE, SPAN_LSTM_WINDOW_ITERS)
     phase18 = timed(18, phase_kernels, device)
     phase19 = timed(19, phase_update_kernels, device)
     timed(20, phase_graph, device)

@@ -62,6 +62,7 @@ from gymrl_tpu_torch.envs.rollout import VecState
 from gymrl_tpu_torch.nn.layers import PSCN, Edge, pscn_activation_edges
 from gymrl_tpu_torch.nn.mhc import MHCBackbone
 from gymrl_tpu_torch.nn.recurrent import LSTMCell, URNNCell
+from gymrl_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -135,9 +136,10 @@ class RNDPair(nn.Module):
         self.target = PSCN(in_dim, embed_dim, depth=depth, generator=generator)
 
     def forward(self, x):
-        with torch.no_grad():
-            target = self.target(x)
-        return self.predictor(x), target
+        with span("rnd"):
+            with torch.no_grad():
+                target = self.target(x)
+            return self.predictor(x), target
 
 
 class LSTMActorCritic(nn.Module):
@@ -264,68 +266,80 @@ class PPOLSTMTrainer(RecurrentTrainer):
                    timer: PhaseTimer | None = None) -> tuple[LSTMTrainState, IterOut]:
         """One iteration; updates ``ts.params`` / ``ts.opt_state`` in place.
         ``timer``, if given, is called with "rollout", "gae" (successor
-        values, dual-λ GAE and the packed chunks) and "sgd" as each phase ends."""
+        values, dual-λ GAE and the packed chunks) and "sgd" as each phase ends.
+        With ``utils.profiling``'s tracing on, the iteration is a
+        ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
+        each close just before their phase's ``timer`` call, as
+        ``PPOTrainer``'s do."""
         cfg = self.cfg
         mark = timer or (lambda phase: None)
-        (vec_state, hidden), roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
-        mark("rollout")
-        with torch.no_grad():
-            # successor values under the post-step hidden, one batched step
-            packed_h = roll.h_post.shape[-1]
-            _, _, next_values = ts.params.step(roll.h_post.reshape(-1, packed_h),
-                                               roll.next_obs.reshape(-1, self.obs_dim))
-            adv, returns = compute_gae_dual_lambda(
-                roll.reward, roll.value, next_values.reshape(roll.value.shape),
-                roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
+        with span("train_iter"):
+            (vec_state, hidden), roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+            mark("rollout")
+            with torch.no_grad(), span("gae"):
+                # successor values under the post-step hidden, one batched step
+                packed_h = roll.h_post.shape[-1]
+                _, _, next_values = ts.params.step(roll.h_post.reshape(-1, packed_h),
+                                                   roll.next_obs.reshape(-1, self.obs_dim))
+                adv, returns = compute_gae_dual_lambda(
+                    roll.reward, roll.value, next_values.reshape(roll.value.shape),
+                    roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
+                )
+                # every rank's env columns, in rank order: the unsharded rollout
+                roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
+                    (roll._replace(next_obs=None, h_post=None), adv, returns,
+                     (ep_ret, ep_len, ep_done)), axis=1)
+                packed, spec = pack_fields(self._chunks(roll, standardize(adv), returns))
+            mark("gae")
+
+            with span("sgd"):
+                lr, ent_coef = annealed(cfg, ts.env_steps)
+                for group in ts.opt_state.param_groups:
+                    group["lr"] = lr
+                perms = ts.noise.permutations(cfg.num_epochs, packed.shape[0])
+                metrics = self._epochs(ts, packed, spec, perms,
+                                       lambda net, mb: self._loss(net, mb, ent_coef))
+            mark("sgd")
+
+            new_ts = ts._replace(vec_state=vec_state, hidden=hidden,
+                                 env_steps=ts.env_steps + cfg.batch_total)
+            scalars = {"lr": lr, "ent_coef": ent_coef}
+            return new_ts, IterOut(
+                ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
+                metrics=metrics | {k: torch.full((), v, device=self.device)
+                                   for k, v in scalars.items()},
             )
-            # every rank's env columns, in rank order: the unsharded rollout
-            roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
-                (roll._replace(next_obs=None, h_post=None), adv, returns,
-                 (ep_ret, ep_len, ep_done)), axis=1)
-            packed, spec = pack_fields(self._chunks(roll, standardize(adv), returns))
-        mark("gae")
-
-        lr, ent_coef = annealed(cfg, ts.env_steps)
-        for group in ts.opt_state.param_groups:
-            group["lr"] = lr
-        perms = ts.noise.permutations(cfg.num_epochs, packed.shape[0])
-        metrics = self._epochs(ts, packed, spec, perms,
-                               lambda net, mb: self._loss(net, mb, ent_coef))
-        mark("sgd")
-
-        new_ts = ts._replace(vec_state=vec_state, hidden=hidden,
-                             env_steps=ts.env_steps + cfg.batch_total)
-        scalars = {"lr": lr, "ent_coef": ent_coef}
-        return new_ts, IterOut(
-            ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-            metrics=metrics | {k: torch.full((), v, device=self.device)
-                               for k, v in scalars.items()},
-        )
 
     # -- internals ------------------------------------------------------------
     @torch.no_grad()
     def _collect(self, ts: LSTMTrainState):
-        vec_state, hidden, noise = ts.vec_state, ts.hidden, ts.noise
-        steps = []
-        for _ in range(self.cfg.rollout_steps):
-            obs, h_pre = vec_state.obs, hidden
-            hidden, logits, value, predict, target = ts.params(hidden, obs)
-            # Gumbel-max: jax.random.categorical's own sampler
-            action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
-            logp, entropy = categorical_logp_entropy(logits, action)
-            vec_state, tr = self.venv.step(vec_state, action, noise)
-            rnd_reward = torch.square(predict - target).mean(dim=-1)
-            h_post = hidden
-            hidden = torch.where(tr.done[:, None], 0.0, hidden)  # a new episode starts fresh
-            steps.append((
-                LSTMRollout(obs=obs, action=action, logp=logp, value=value, entropy=entropy,
-                            reward=tr.reward + rnd_reward, next_obs=tr.next_obs, h_pre=h_pre,
-                            h_post=h_post, done=tr.done.float()),
-                (tr.final_return, tr.final_length, tr.done),
-            ))
-        roll = LSTMRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-        return (vec_state, hidden), roll, stats
+        with span("rollout"):
+            vec_state, hidden, noise = ts.vec_state, ts.hidden, ts.noise
+            steps = []
+            for _ in range(self.cfg.rollout_steps):
+                with span("rollout.step"):
+                    obs, h_pre = vec_state.obs, hidden
+                    with span("policy"):
+                        hidden, logits, value, predict, target = ts.params(hidden, obs)
+                        # Gumbel-max: jax.random.categorical's own sampler
+                        action = torch.argmax(logits + noise.gumbel(logits.shape),
+                                              dim=-1).to(torch.int32)
+                        logp, entropy = categorical_logp_entropy(logits, action)
+                    vec_state, tr = self.venv.step(vec_state, action, noise)
+                    rnd_reward = torch.square(predict - target).mean(dim=-1)
+                    h_post = hidden
+                    # a new episode starts fresh
+                    hidden = torch.where(tr.done[:, None], 0.0, hidden)
+                    steps.append((
+                        LSTMRollout(obs=obs, action=action, logp=logp, value=value,
+                                    entropy=entropy, reward=tr.reward + rnd_reward,
+                                    next_obs=tr.next_obs, h_pre=h_pre, h_post=h_post,
+                                    done=tr.done.float()),
+                        (tr.final_return, tr.final_length, tr.done),
+                    ))
+            roll = LSTMRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
+            stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+            return (vec_state, hidden), roll, stats
 
     def _chunks(self, roll: LSTMRollout, adv, returns) -> dict[str, torch.Tensor]:
         """The training sequences: each env column cut into ``seq_len``-step

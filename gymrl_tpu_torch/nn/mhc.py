@@ -37,6 +37,7 @@ from torch import nn
 
 from gymrl_tpu_torch.nn import initializers as gl_init
 from gymrl_tpu_torch.nn.layers import Dense, RMSNorm
+from gymrl_tpu_torch.utils.profiling import span
 
 
 def sinkhorn_knopp(A: torch.Tensor, iters: int, eps: float = 1e-8):
@@ -82,7 +83,7 @@ class MHCFuse(nn.Module):
         H_pre = torch.sigmoid(r_ * H[:, :n] * alpha[0] + beta[:n])
         H_post = 2.0 * torch.sigmoid(r_ * H[:, n:2 * n] * alpha[1] + beta[n:2 * n])
         A = torch.exp((r_ * H[:, 2 * n:] * alpha[2] + beta[2 * n:]).reshape(b, n, n))
-        with torch.no_grad():
+        with torch.no_grad(), span("mhc.sinkhorn"):
             _, u, v = sinkhorn_knopp(A, self.sk_iters)
         H_res = u[:, :, None] * A * v[:, None, :]
         return H_pre, H_post, H_res
@@ -124,8 +125,9 @@ class MHCBackbone(nn.Module):
         self.final_norm = RMSNorm(output_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.input_proj(x)
-        h = h[:, None, :].expand(-1, self.rate, -1)  # [B, N, D]
-        for i in range(self.num_layers):
-            h = getattr(self, f"block_{i}")(h)
-        return self.final_norm(h.sum(dim=1))
+        with span("mhc"):
+            h = self.input_proj(x)
+            h = h[:, None, :].expand(-1, self.rate, -1)  # [B, N, D]
+            for i in range(self.num_layers):
+                h = getattr(self, f"block_{i}")(h)
+            return self.final_norm(h.sum(dim=1))

@@ -39,6 +39,7 @@ from torch import nn
 
 from gymrl_tpu_torch.nn import initializers as gl_init
 from gymrl_tpu_torch.nn.layers import MLP, Dense
+from gymrl_tpu_torch.utils.profiling import span
 
 
 class GRUCell(nn.Module):
@@ -72,20 +73,21 @@ class GRUCell(nn.Module):
         ``stack`` (an in-place write into one buffer would trip autograd)."""
         H = self.features
         n_in = getattr(self, "in")
-        xg = F.linear(xs, torch.cat([self.ir.weight, self.iz.weight, n_in.weight]),
-                      torch.cat([self.ir.bias, self.iz.bias, n_in.bias]))
-        w_h = torch.cat([self.hr.weight, self.hz.weight, self.hn.weight]).t()
-        b_h = torch.cat([self.hn.bias.new_zeros(2 * H), self.hn.bias])
-        hs = []
-        for t in range(xs.shape[1]):
-            hg = torch.addmm(b_h, h, w_h)
-            x_t = xg[:, t]
-            rz = torch.sigmoid(x_t[:, :2 * H] + hg[:, :2 * H])
-            r, z = rz[:, :H], rz[:, H:]
-            n = torch.tanh(x_t[:, 2 * H:] + r * hg[:, 2 * H:])
-            h = (1.0 - z) * n + z * h
-            hs.append(h)
-        return torch.stack(hs, dim=1)
+        with span("rnn.unroll"):
+            xg = F.linear(xs, torch.cat([self.ir.weight, self.iz.weight, n_in.weight]),
+                          torch.cat([self.ir.bias, self.iz.bias, n_in.bias]))
+            w_h = torch.cat([self.hr.weight, self.hz.weight, self.hn.weight]).t()
+            b_h = torch.cat([self.hn.bias.new_zeros(2 * H), self.hn.bias])
+            hs = []
+            for t in range(xs.shape[1]):
+                hg = torch.addmm(b_h, h, w_h)
+                x_t = xg[:, t]
+                rz = torch.sigmoid(x_t[:, :2 * H] + hg[:, :2 * H])
+                r, z = rz[:, :H], rz[:, H:]
+                n = torch.tanh(x_t[:, 2 * H:] + r * hg[:, 2 * H:])
+                h = (1.0 - z) * n + z * h
+                hs.append(h)
+            return torch.stack(hs, dim=1)
 
 
 class LSTMCell(nn.Module):
@@ -132,13 +134,14 @@ class LSTMCell(nn.Module):
         """``(hs[mb, L, H], c_L)`` of ``xs[mb, L, in]`` from ``(c, h)``: the
         input maps are one matmul over all steps, each step one matmul of
         the stacked hidden maps and the gates (``GRUCell.unroll``'s shape)."""
-        w_i, w_h, b_h = self._stacked()
-        xg = F.linear(xs, w_i)
-        hs = []
-        for t in range(xs.shape[1]):
-            c, h = self._gates(xg[:, t], c, h, w_h, b_h)
-            hs.append(h)
-        return torch.stack(hs, dim=1), c
+        with span("rnn.unroll"):
+            w_i, w_h, b_h = self._stacked()
+            xg = F.linear(xs, w_i)
+            hs = []
+            for t in range(xs.shape[1]):
+                c, h = self._gates(xg[:, t], c, h, w_h, b_h)
+                hs.append(h)
+            return torch.stack(hs, dim=1), c
 
 
 class URNNCell(nn.Module):

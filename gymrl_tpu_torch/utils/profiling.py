@@ -8,7 +8,9 @@ Three tools:
     block has ended (``kernel_stats``, ``span_trace``).
   * ``span(name)`` — the program's spans at the boundaries of its layers
     (``train_iter``, ``rollout``, ``rollout.step``, ``policy``, ``env.step``,
-    ``gae``, ``sgd`` and its routes, ``kernels.load``, ``trainer.init``). Off
+    ``gae``, ``sgd`` and its routes, ``kernels.load``, ``trainer.init``; the
+    mHC backbone's ``mhc`` and its Sinkhorn projection's ``mhc.sinkhorn``,
+    the recurrent cells' ``rnn.unroll``, ppo_lstm's RND pair's ``rnd``). Off
     by default, when a span costs one flag check. ``enable()`` turns them on:
     each span is then kept in memory (``spans()``, ``clear()``), and while a
     ``torch.profiler`` session runs it is also a ``record_function`` range
@@ -84,9 +86,14 @@ def _is_copy(name: str) -> bool:
 
 
 def _is_kernel(ev) -> bool:
+    """A kernel on the card: not a copy, and not the device's copy of a host
+    range (a program span, or a library's ``record_function`` such as
+    ``torch.optim``'s ``Optimizer.step#Adam.step``, which the profiler marks
+    as a user annotation)."""
     name = ev.name()
+    annotation = getattr(ev, "is_user_annotation", None)
     return (ev.device_type() == torch.autograd.DeviceType.CUDA and not _is_copy(name)
-            and not name.startswith(PREFIX))
+            and not name.startswith(PREFIX) and not (annotation and annotation()))
 
 
 # -- the program's spans --------------------------------------------------------
