@@ -225,8 +225,8 @@ only if all of them pass.
      ``lander_step`` inside ``rollout.replay`` and every ``clip_adam``
      inside ``sgd``, launch calls per rollout step, kernels per rollout
      replay and per grad step, the idle share inside ``rollout`` and the
-     idle time by span. (c) The same on ``ppo_lstm_lunarlander`` (eager:
-     every ``lander_step`` inside ``env.step``), over 5 window iterations,
+     idle time by span. (c) The same on ``ppo_lstm_lunarlander`` (its
+     rollout replayed, its update eager), over 5 window iterations,
      with at least 99% of its kernels put down to a span; both cases give
      the kernels, device ms and launch calls an iteration under each of
      ``mhc``, ``mhc.sinkhorn``, ``rnd``, ``rnn.unroll``, ``policy``,
@@ -339,19 +339,23 @@ only if all of them pass.
      captured on a side stream with its step terms on the card
      (``kernels.ppo.device_terms``) and replayed twice: the capture runs
      nothing, the replays equal two eager launches to the bit. (b) The
-     bench config, ``ppo_lunarlander`` and ``ppo_cartpole``, 4 iterations
-     each from ``init(0)`` with ``graphs`` off and on (the warm-up, the
-     captures with their replays, two replays): the rows each iteration
-     hands to ``_sgd`` equal to the bit, and every state entry (params,
+     bench config, ``ppo_lunarlander``, ``ppo_cartpole`` and the recurrent
+     ``ppo_lstm_lunarlander`` (its rollout alone a graph; its update, no
+     PPO update kernel, eager), 4 iterations each from ``init(0)`` with
+     ``graphs`` off and on (the warm-up, the captures with their replays,
+     two replays): the rows each iteration hands to its update (``_sgd``,
+     ``_epochs``) equal to the bit, and every state entry (params,
      ``exp_avg``, ``exp_avg_sq``, the step counts, the env batch, the
      noise's generator) and every metric equal to the bit, else params and
      moments within ``ADAM_TOL`` and metrics within ``HEAD_RTOL`` with all
      else equal (whether equal to the bit is printed); each update kernel
      once per grad step and each lander kernel once per env step on both
      paths, counted per replay on the graph; one capture and three replays
-     of each graph. Each path's rollout and SGD ms (CUDA events),
-     env-steps/s, launch calls and kernels per rollout step (one rollout
-     traced), launches per grad step (one sweep traced) and peak memory.
+     of each graph the trainer has. Each path's rollout and SGD ms (CUDA
+     events), env-steps/s, launch calls and kernels per rollout step (one
+     rollout traced), launches per grad step (one update traced), the
+     ``rollout.capture`` and ``sgd.capture`` spans' seconds and peak
+     memory.
      (c) On ``ppo_lunarlander`` and ``ppo_cartpole`` both paths also save a
      checkpoint after iteration 2 and, after iteration 4, restore it into
      ``init(1)`` and run one more iteration: both graphs capture anew (two
@@ -2688,7 +2692,7 @@ HAND_WRITTEN = {"lander_step": "lunarlander_step", "lander_reset": "lunarlander_
                 "grad_sq_norms": "grad_sq_norms", "clip_adam": "clip_adam"}
 # The span each must be in, on the graph path (``env.step`` where the rollout is eager).
 SPAN_OF_KERNEL = {"lander_step": "rollout.replay", "clip_adam": "sgd"}
-SPAN_LSTM_CASE = "ppo_lstm_lunarlander"  # eager: the mHC backbone, Sinkhorn, RND, the GRU
+SPAN_LSTM_CASE = "ppo_lstm_lunarlander"  # its rollout replayed, its update eager (mHC, GRU)
 SPAN_LSTM_WINDOW_ITERS = 5
 SPAN_MIN_SHARE = 0.99  # of the traced kernels put down to a span
 # The spans whose kernels, device time and launch calls an iteration phase 17 reports.
@@ -4045,10 +4049,12 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
 
 
 # -- phase 20: the captured rollout and sweep against the eager ones ---------------------
-GRAPH_CASES = ("bench", "ppo_lunarlander", "ppo_cartpole")
+# The recurrent case captures its rollout alone: its update runs eagerly.
+GRAPH_CASES = ("bench", "ppo_lunarlander", "ppo_cartpole", "ppo_lstm_lunarlander")
 GRAPH_ITERS = 4  # the warm-up, the captures with their replays, two more replays
 # saved after iteration 2, restored into a fresh state after GRAPH_ITERS
 GRAPH_RESTORE_CASES = ("ppo_lunarlander", "ppo_cartpole")
+GRAPH_HOLDERS = ("rollout_graph", "sweep_graph")
 
 
 def _holder_counts(holder) -> dict:
@@ -4056,16 +4062,21 @@ def _holder_counts(holder) -> dict:
             "replays": holder.replays if holder else 0}
 
 
+def _holders(trainer) -> dict:
+    """Each graph holder's counts; a holder the trainer lacks counts none."""
+    return {h: _holder_counts(getattr(trainer, h, None)) for h in GRAPH_HOLDERS}
+
+
 def _graph_counts(label: str, trainer, iters: int) -> dict:
     """The captures and replays of ``trainer``'s rollout and SGD sweep
     graphs, logged; on the graph path, ``iters`` iterations from a fresh
-    trainer must be, for each, the warm-up, one capture and ``iters - 1``
-    replays."""
-    counts = {"rollout": _holder_counts(trainer.rollout_graph),
-              "sweep": _holder_counts(trainer.sweep_graph)}
+    trainer must be, for each holder it has, the warm-up, one capture and
+    ``iters - 1`` replays (none for a holder it lacks)."""
+    counts = {h.split("_")[0]: c for h, c in _holders(trainer).items()}
     log(f"{label} graphs: " + json.dumps(counts))
-    want = {"captures": 1, "replays": iters - 1}
-    if trainer._graphed() and counts != {"rollout": want, "sweep": want}:
+    want = {h.split("_")[0]: ({"captures": 1, "replays": iters - 1} if hasattr(trainer, h)
+                              else _holder_counts(None)) for h in GRAPH_HOLDERS}
+    if trainer._graphed() and counts != want:
         raise AssertionError(f"{label}: {iters} iterations, but the graphs {counts}")
     return counts
 
@@ -4142,15 +4153,17 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
                restore: bool) -> dict:
     """``iters`` iterations of case ``name`` from ``init(0)`` with
     ``trainer.graphs = graphs``: each iteration's wall time, rollout and SGD
-    ms (CUDA events), metrics, launches and the rows it hands to ``_sgd``
-    (on the CPU), the peak memory, the state on the CPU; then one rollout
-    and one sweep under ``trace`` (launch calls and kernels per env step,
-    kernels per grad step). With ``restore``, the state is saved after
-    iteration 2 and, after the iterations, restored into ``init(1)`` for
-    one more iteration."""
+    ms (CUDA events), metrics, launches and the rows it hands to its update
+    (PPO's ``_sgd``, the recurrent trainer's ``_epochs``; on the CPU), the
+    peak memory, the seconds of the graphs' captures (spans), the state on
+    the CPU; then one rollout and one update under ``trace`` (launch calls
+    and kernels per env step, kernels per grad step). With ``restore``, the
+    state is saved after iteration 2 and, after the iterations, restored
+    into ``init(1)`` for one more iteration."""
     from unittest import mock
 
     from gymrl_tpu_torch import kernels
+    from gymrl_tpu_torch.utils import profiling
     from gymrl_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
     from gymrl_tpu_torch.utils.profiling import kernel_stats, trace
 
@@ -4160,10 +4173,13 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     cfg = trainer.cfg
     grad_steps = cfg.num_epochs * cfg.num_minibatches
     ts = trainer.init(0)
-    seen, sgd = [], trainer._sgd
+    update = "_sgd" if hasattr(trainer, "_sgd") else "_epochs"
+    seen, sgd = [], getattr(trainer, update)
     clock = PhaseClock(device)
     lander_steps = cfg.rollout_steps if cfg.env_name.startswith("LunarLander") else 0
     out = {"case": name, "graphs": graphs, "grad_steps": grad_steps, "lander_steps": lander_steps,
+           # PPO's update kernels, once a grad step; the recurrent update launches none
+           "update_launches": grad_steps if update == "_sgd" else 0,
            "wall_ms": [], "rollout_ms": [], "sgd_ms": [], "launches": [], "metrics": [],
            "rows": []}
     _sync(device)
@@ -4171,9 +4187,11 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
         torch.cuda.empty_cache()  # the reserved peak then counts this run's segments
         torch.cuda.reset_peak_memory_stats(device)
     out["base_bytes"] = torch.cuda.memory_allocated(device) if cuda else None
+    profiling.clear()
+    profiling.enable()
     with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
-            trainer, "_sgd", lambda t, packed, perms: seen.append((packed, perms))
-            or sgd(t, packed, perms)):
+            trainer, update, lambda t, packed, *rest: seen.append((packed, rest))
+            or sgd(t, packed, *rest)):
         path = os.path.join(tmp, "ckpt.pt")
         for it in range(iters + int(restore)):
             if restore and it == iters:
@@ -4195,15 +4213,20 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
                 save_checkpoint(path, ts)
             if it == iters - 1:
                 out["state"] = _cpu_flat(ts)
+        profiling.disable()
+        out["capture_s"] = {k: sum(s.end_ns - s.start_ns for s in profiling.spans()
+                                   if s.name == k) / 1e9
+                            for k in ("rollout.capture", "sgd.capture")}
+        profiling.clear()
         out["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device) if cuda else None
         # the caching allocator's segments, the graphs' private pools among them
         out["peak_reserved_bytes"] = torch.cuda.max_memory_reserved(device) if cuda else None
         out["env_steps_per_s"] = cfg.batch_total / out["wall_ms"][iters - 1] * 1e3
         if restore:
             out["restored_state"] = _cpu_flat(ts)
-        out["rollout_graph"] = _holder_counts(trainer.rollout_graph)
-        out["sweep_graph"] = _holder_counts(trainer.sweep_graph)
-        packed, perms = seen[-1]
+        out.update(_holders(trainer))
+        out["holders"] = [h for h in GRAPH_HOLDERS if hasattr(trainer, h)]
+        packed, rest = seen[-1]
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp, device) as prof:
             trainer._collect(ts)
@@ -4212,10 +4235,10 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     out["kernels_per_env_step"] = kernel_stats(prof)["kernels"] / cfg.rollout_steps
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp, device) as prof:
-            trainer._sgd(ts, packed, perms)
+            getattr(trainer, update)(ts, packed, *rest)
             _sync(device)
     out["launches_per_grad_step"] = kernel_stats(prof)["kernels"] / grad_steps
-    del prof, trainer, ts, seen, packed, perms
+    del prof, trainer, ts, seen, packed, rest
     if cuda:
         torch.cuda.empty_cache()
     return out
@@ -4279,20 +4302,22 @@ def phase_graph(device: torch.device, cases=GRAPH_CASES, iters: int = GRAPH_ITER
                **{path: {k: r[k] for k in ("wall_ms", "rollout_ms", "sgd_ms", "env_steps_per_s",
                                            "launch_calls_per_env_step", "kernels_per_env_step",
                                            "launches_per_grad_step", "peak_memory_bytes",
-                                           "peak_reserved_bytes", "base_bytes", "rollout_graph",
-                                           "sweep_graph", "launches")}
+                                           "peak_reserved_bytes", "base_bytes", "capture_s",
+                                           *GRAPH_HOLDERS, "launches")}
                   for path, r in (("eager", eager), ("graph", graph))}}
         log("phase 20b graphs: " + json.dumps(row))
         for path, r in (("eager", eager), ("graph", graph)):
             for counts in r["launches"] if cuda else ():
-                _check_update_launches(f"phase 20 {name} {path}", counts, r["grad_steps"])
+                _check_update_launches(f"phase 20 {name} {path}", counts, r["update_launches"])
                 if any(counts[k] != r["lander_steps"] for k in LANDER_KERNELS):
                     raise AssertionError(f"phase 20 {name} {path}: {r['lander_steps']} lander "
                                          f"env steps, but launches {counts}")
-        want = ({"captures": 2 if restore else 1, "replays": iters - 1 + int(restore)} if cuda
-                else {"captures": 0, "replays": 0})  # the CPU (a rehearsal) runs eagerly
-        none = {"captures": 0, "replays": 0}
-        for holder in ("rollout_graph", "sweep_graph"):
+        none = _holder_counts(None)
+        engaged = ({"captures": 2 if restore else 1, "replays": iters - 1 + int(restore)}
+                   if cuda else none)  # the CPU (a rehearsal) runs eagerly
+        for holder in GRAPH_HOLDERS:
+            # a holder the trainer lacks (the recurrent one's sweep) counts none
+            want = engaged if holder in graph["holders"] else none
             if graph[holder] != want or eager[holder] != none:
                 raise AssertionError(f"phase 20 {name}: {holder} {graph[holder]} (want {want}), "
                                      f"eager {eager[holder]}")

@@ -9,12 +9,13 @@ A ``Trainer`` exposes:
 The JAX trainers are pure and jitted; here ``train_iter`` updates the
 parameters and optimizer held by ``ts`` in place (PyTorch's idiom),
 returning the state with its new env batch and counters. It runs eagerly,
-but for two parts: on a CUDA device without a mesh, while ``trainer.graphs``
-is True (the default), ``PPOTrainer``'s T-step rollout (``RolloutGraph``)
-and its SGD sweep (``SweepGraph``) are each one replay of a captured CUDA
-graph, the counterparts of the JAX trainer's jitted rollout scan and epoch ×
-minibatch scan. Everything under a mesh, the CPU and the other trainers'
-rollouts and updates run eagerly.
+but for these parts: on a CUDA device without a mesh, while
+``trainer.graphs`` is True (the default), the T-step rollouts of
+``PPOTrainer`` and ``PPOLSTMTrainer`` (``RolloutGraph``) and
+``PPOTrainer``'s SGD sweep (``SweepGraph``) are each one replay of a
+captured CUDA graph, the counterparts of the JAX trainer's jitted rollout
+scan and epoch × minibatch scan. Everything under a mesh, the CPU, the
+recurrent update and the other trainers' rollouts and updates run eagerly.
 
 Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
 env batch and computes its share of every minibatch. A rank's loss is its
@@ -511,10 +512,11 @@ class Trainer:
         self.device = resolve_device(device if mesh is None else mesh.device_for(device))
         n = getattr(cfg, "num_envs", None)
         self.local_envs = n if mesh is None else mesh.local_count(n, "num_envs")
-        # Whether a trainer that captures its rollout and SGD sweep (PPOTrainer,
-        # on a CUDA device without a mesh) replays them as CUDA graphs
-        # (RolloutGraph, SweepGraph); False runs them eagerly. The counterpart
-        # of the JAX Trainer's ``donate``.
+        # Whether a trainer that captures its rollout (PPOTrainer,
+        # PPOLSTMTrainer) or its SGD sweep (PPOTrainer), on a CUDA device
+        # without a mesh, replays them as CUDA graphs (RolloutGraph,
+        # SweepGraph); False runs them eagerly. The counterpart of the JAX
+        # Trainer's ``donate``.
         self.graphs = True
 
     def _graphed(self) -> bool:

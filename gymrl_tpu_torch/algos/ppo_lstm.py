@@ -28,8 +28,11 @@ target never moves.
 
 The training re-unroll (``_seq_forward``) runs the RND pair, the backbone,
 the cell's input maps and the heads once over all ``mb·L`` steps; only the
-cell's hidden side is a loop over L. ``train_iter`` runs eagerly, updates the
-net and optimizer in place and makes no host sync. Every draw comes from
+cell's hidden side is a loop over L. ``train_iter`` updates the net and
+optimizer in place and makes no host sync. On a CUDA device without a mesh,
+while ``trainer.graphs`` is on, the T-step rollout is one replay of a
+captured CUDA graph (``RolloutGraph``, as ``PPOTrainer``'s); the rest of the
+iteration, the update included, runs eagerly. Every draw comes from
 ``ts.noise`` in the reference's order: per rollout step the action's
 Gumbels, then the env's draws; then one permutation per epoch.
 
@@ -43,6 +46,7 @@ means sum their active counts over ``data``.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -51,7 +55,8 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, adam, assert_flat_tp_ok, masked_mean, pack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, RolloutGraph, adam, assert_flat_tp_ok, masked_mean,
+    pack_fields,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
 from gymrl_tpu_torch.algos.ppo_full import SiluRMSMLP, annealed
@@ -227,6 +232,7 @@ class PPOLSTMTrainer(RecurrentTrainer):
         self.venv = make_vec(cfg.env_name, self.local_envs)
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
+        self.rollout_graph: RolloutGraph | None = None  # made at the first rollout it runs
 
     def make_net(self, generator: torch.Generator | None = None) -> LSTMActorCritic:
         return LSTMActorCritic(self.obs_dim, self.n_actions, self.cfg, generator)
@@ -270,7 +276,17 @@ class PPOLSTMTrainer(RecurrentTrainer):
         With ``utils.profiling``'s tracing on, the iteration is a
         ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
         each close just before their phase's ``timer`` call, as
-        ``PPOTrainer``'s do."""
+        ``PPOTrainer``'s do.
+
+        Where the rollout is a graph replay (``_collect``), the returned
+        state's ``vec_state`` and ``hidden`` are the graph's static carry:
+        the next replay overwrites them in place, so a caller that keeps the
+        state of an earlier iteration copies them. The rollout itself lives
+        in the graph's pool until the next replay; every reader of it here
+        (the successor forward on ``h_post``, GAE, ``_chunks`` and the
+        ``cat`` of ``pack_fields``) runs within this iteration. The
+        ``IterOut``'s episode statistics are copies the next iteration
+        leaves alone."""
         cfg = self.cfg
         mark = timer or (lambda phase: None)
         with span("train_iter"):
@@ -313,33 +329,57 @@ class PPOLSTMTrainer(RecurrentTrainer):
     # -- internals ------------------------------------------------------------
     @torch.no_grad()
     def _collect(self, ts: LSTMTrainState):
+        """The T-step rollout: ``((vec_state, hidden), LSTMRollout,
+        (final_return, final_length, done))``. On a CUDA device without a
+        mesh, while ``graphs`` is on and the noise is a plain ``Noise``, one
+        replay of a captured CUDA graph (``RolloutGraph``; its first run is
+        the eager warm-up), whose ``LSTMRollout`` lives in the graph's pool
+        until the next replay and whose episode statistics are handed out as
+        copies; else the eager loop (a test's replay of the JAX keys,
+        ``ShardedNoise``)."""
         with span("rollout"):
-            vec_state, hidden, noise = ts.vec_state, ts.hidden, ts.noise
-            steps = []
-            for _ in range(self.cfg.rollout_steps):
-                with span("rollout.step"):
-                    obs, h_pre = vec_state.obs, hidden
-                    with span("policy"):
-                        hidden, logits, value, predict, target = ts.params(hidden, obs)
-                        # Gumbel-max: jax.random.categorical's own sampler
-                        action = torch.argmax(logits + noise.gumbel(logits.shape),
-                                              dim=-1).to(torch.int32)
-                        logp, entropy = categorical_logp_entropy(logits, action)
-                    vec_state, tr = self.venv.step(vec_state, action, noise)
-                    rnd_reward = torch.square(predict - target).mean(dim=-1)
-                    h_post = hidden
-                    # a new episode starts fresh
-                    hidden = torch.where(tr.done[:, None], 0.0, hidden)
-                    steps.append((
-                        LSTMRollout(obs=obs, action=action, logp=logp, value=value,
-                                    entropy=entropy, reward=tr.reward + rnd_reward,
-                                    next_obs=tr.next_obs, h_pre=h_pre, h_post=h_post,
-                                    done=tr.done.float()),
-                        (tr.final_return, tr.final_length, tr.done),
-                    ))
-            roll = LSTMRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-            stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-            return (vec_state, hidden), roll, stats
+            carry = (ts.vec_state, ts.hidden)
+            body = functools.partial(self._rollout, ts.params, ts.noise)
+            if self._graphed() and type(ts.noise) is Noise:
+                if self.rollout_graph is None:
+                    self.rollout_graph = RolloutGraph(self.device)
+                carry, (roll, stats) = self.rollout_graph.run(ts.params, ts.noise, carry, body)
+                stats = tuple(x.clone() for x in stats)  # the next replay overwrites the graph's
+            else:
+                carry, (roll, stats) = body(carry)
+            return carry, roll, stats
+
+    def _rollout(self, net, noise, carry):
+        """The eager rollout from ``carry = (vec_state, hidden)``:
+        ``(carry', (LSTMRollout, stats))``, every field stacked over the T
+        steps. ``net`` is called as a module, so an instance's own
+        ``forward`` is what runs (and what a capture records)."""
+        vec_state, hidden = carry
+        steps = []
+        for _ in range(self.cfg.rollout_steps):
+            with span("rollout.step"):
+                obs, h_pre = vec_state.obs, hidden
+                with span("policy"):
+                    hidden, logits, value, predict, target = net(hidden, obs)
+                    # Gumbel-max: jax.random.categorical's own sampler
+                    action = torch.argmax(logits + noise.gumbel(logits.shape),
+                                          dim=-1).to(torch.int32)
+                    logp, entropy = categorical_logp_entropy(logits, action)
+                vec_state, tr = self.venv.step(vec_state, action, noise)
+                rnd_reward = torch.square(predict - target).mean(dim=-1)
+                h_post = hidden
+                # a new episode starts fresh
+                hidden = torch.where(tr.done[:, None], 0.0, hidden)
+                steps.append((
+                    LSTMRollout(obs=obs, action=action, logp=logp, value=value,
+                                entropy=entropy, reward=tr.reward + rnd_reward,
+                                next_obs=tr.next_obs, h_pre=h_pre, h_post=h_post,
+                                done=tr.done.float()),
+                    (tr.final_return, tr.final_length, tr.done),
+                ))
+        roll = LSTMRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
+        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+        return (vec_state, hidden), (roll, stats)
 
     def _chunks(self, roll: LSTMRollout, adv, returns) -> dict[str, torch.Tensor]:
         """The training sequences: each env column cut into ``seq_len``-step
