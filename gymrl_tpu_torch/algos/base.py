@@ -8,13 +8,13 @@ A ``Trainer`` exposes:
 
 The JAX trainers are pure and jitted; here ``train_iter`` updates the
 parameters and optimizer held by ``ts`` in place (PyTorch's idiom),
-returning the state with its new env batch and counters. It runs eagerly,
-but for these parts: on a CUDA device without a mesh, while
-``trainer.graphs`` is True (the default), the T-step rollouts of
-``PPOTrainer`` and ``PPOLSTMTrainer`` (``RolloutGraph``) and
-``PPOTrainer``'s SGD sweep (``SweepGraph``) are each one replay of a
-captured CUDA graph, the counterparts of the JAX trainer's jitted rollout
-scan and epoch × minibatch scan. Everything under a mesh, the CPU, the
+returning the state with its new env batch and counters. The PPO
+family's loops are the port's ``lax.scan``, written once: ``rollout_scan``,
+``sweep`` and ``to_chunks``. They run eagerly, but for these parts: on a
+CUDA device without a mesh, while ``trainer.graphs`` is True (the default),
+the rollouts of ``PPOTrainer`` and ``PPOLSTMTrainer`` (``_rollout_route``,
+``RolloutGraph``) and ``PPOTrainer``'s sweep (``SweepGraph``) are each one
+replay of a captured CUDA graph. Everything under a mesh, the CPU, the
 recurrent update and the other trainers' rollouts and updates run eagerly.
 
 Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 from typing import Any, Callable, NamedTuple
 
 import torch
@@ -212,15 +213,47 @@ def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
         vec = torch.stack([v.float() for v in metrics.values()])
         mesh.mean_([p.grad for p in params] + [vec])
         metrics = dict(zip(metrics.keys(), vec.unbind()))
-    clip_grads_by_global_norm_([p.grad for p in params], max_grad_norm)
-    opt.step()
+    clip_adam_plain_(opt, [p.grad for p in params], max_grad_norm)
     return metrics
 
 
-def mean_metrics(history: list[dict[str, torch.Tensor]]) -> dict[str, torch.Tensor]:
-    """Each metric averaged over the gradient steps of ``history``."""
-    means = torch.stack([torch.stack(list(m.values())) for m in history]).mean(dim=0)
-    return dict(zip(history[0].keys(), means.unbind()))
+def rollout_scan(step: Callable[[Any], tuple[Any, Any]], carry: Any,
+                 steps: int) -> tuple[Any, Any]:
+    """The port's ``lax.scan``: ``step(carry) -> (carry', out)`` run ``steps``
+    times, each in a ``rollout.step`` span; the last carry, and each leaf of
+    ``out`` stacked over the steps in ``out``'s structure (NamedTuples too)."""
+    history = []
+    for _ in range(steps):
+        with span("rollout.step"):
+            carry, out = step(carry)
+        leaves, spec = tree_flatten(out)
+        history.append(leaves)
+    return carry, tree_unflatten([torch.stack(x) for x in zip(*history)], spec)
+
+
+def sweep(packed: torch.Tensor, perms: torch.Tensor, n_mb: int,
+          step: Callable[[int, int, torch.Tensor], Any]) -> Any:
+    """The epoch × minibatch scan: per epoch, ``packed`` gathered by its row
+    of ``perms`` and cut into ``n_mb`` minibatches, ``step(epoch, i, rows)``
+    on each. A step's metrics are a vector or a dict of scalars; returns
+    their means over every step, as the same (the ``[M]`` vector or dict)."""
+    history, names = [], None
+    for epoch, perm in enumerate(perms):
+        for i, rows in enumerate(packed[perm].reshape(n_mb, -1, packed.shape[1])):
+            metrics = step(epoch, i, rows)
+            if isinstance(metrics, dict):
+                names, metrics = list(metrics), torch.stack(list(metrics.values()))
+            history.append(metrics)
+    means = torch.stack(history).mean(dim=0)
+    return means if names is None else dict(zip(names, means.unbind()))
+
+
+def to_chunks(x: torch.Tensor, seq_len: int) -> torch.Tensor:
+    """``[T, B, ...]`` cut into each env column's ``seq_len``-step chunks:
+    ``[T/L·B, L, ...]``, the first chunk of every column first."""
+    n_chunks, b = x.shape[0] // seq_len, x.shape[1]
+    x = x.reshape((n_chunks, seq_len) + tuple(x.shape[1:])).movedim(2, 1)
+    return x.reshape((n_chunks * b, seq_len) + tuple(x.shape[3:]))
 
 
 def adam(params: list[torch.nn.Parameter], lr: float, eps: float,
@@ -425,11 +458,11 @@ class SweepGraph(CapturedGraph):
 
 
 class RolloutGraph(CapturedGraph):
-    """PPO's T-step rollout as ONE replay of a captured CUDA graph: the
-    port's counterpart of the JAX trainer's jitted rollout scan. The kernels
-    and their order are the eager rollout's (the forward, the Gumbel draw,
-    the log-prob, the env's step, reset draws, reset and selects, the
-    stacks); only who issues the launches changes.
+    """A T-step rollout (``rollout_scan``) as ONE replay of a captured CUDA
+    graph: the port's counterpart of the JAX trainer's jitted rollout scan.
+    The kernels and their order are the eager rollout's (the forward, the
+    Gumbel draw, the log-prob, the env's step, reset draws, reset and
+    selects, the stacks); only who issues the launches changes.
 
     ``run(net, noise, carry, body)`` runs ``body(carry) -> (carry', out)``,
     the eager rollout of ``net`` drawing from ``noise`` (a plain ``Noise``),
@@ -493,6 +526,39 @@ class RolloutGraph(CapturedGraph):
         return out
 
 
+class RolloutSizes:
+    """What a PPO-family config derives from ``num_envs`` and ``rollout_steps``."""
+
+    @property
+    def batch_total(self) -> int:
+        return self.num_envs * self.rollout_steps
+
+
+class SeqRolloutSizes(RolloutSizes):
+    """A recurrent config's rollout cut into ``seq_len``-step chunks
+    (``to_chunks``), minibatches of ``seq_minibatch`` training items."""
+
+    @property
+    def seqs_per_rollout(self) -> int:
+        if self.rollout_steps % self.seq_len:
+            raise ValueError(f"seq_len {self.seq_len} must divide rollout_steps "
+                             f"{self.rollout_steps}")
+        return (self.rollout_steps // self.seq_len) * self.num_envs
+
+    @property
+    def n_train_items(self) -> int:
+        """The rows minibatches are cut from: one per chunk."""
+        return self.seqs_per_rollout
+
+    @property
+    def num_minibatches(self) -> int:
+        n = self.n_train_items
+        mb = min(self.seq_minibatch, n)
+        if n % mb:
+            raise ValueError(f"{n} sequences must divide into minibatches of {mb}")
+        return n // mb
+
+
 def assert_flat_tp_ok(mesh) -> None:
     """The flat-optimizer guard of every PPO-family trainer: one Adam over
     every tensor as one multi-tensor update cannot hold ``model`` splits
@@ -522,6 +588,33 @@ class Trainer:
     def _graphed(self) -> bool:
         """Whether the rollout and the SGD sweep run as CUDA graphs here."""
         return self.graphs and self.device.type == "cuda" and self.mesh is None
+
+    def _iter_out(self, stats, metrics: dict, **scalars: float) -> IterOut:
+        """An iteration's ``IterOut``: its episode statistics ``(return,
+        length, done)``, and ``metrics`` with ``scalars`` as device scalars."""
+        return IterOut(*stats, metrics=metrics | {k: torch.full((), v, device=self.device)
+                                                  for k, v in scalars.items()})
+
+    @torch.no_grad()
+    def _rollout_route(self, net: nn.Module, noise, carry: Any,
+                       step: Callable[[Any], tuple[Any, Any]]) -> tuple[Any, Any, Any]:
+        """``rollout_scan`` of ``step(carry) -> (carry', (rollout, stats))``
+        in a ``rollout`` span: ``(carry', rollout, stats)``. On a CUDA device
+        without a mesh, while ``graphs`` is on and ``noise`` is a plain
+        ``Noise``, one replay of ``self.rollout_graph`` (made at the first
+        run, its eager warm-up): ``carry'`` is the graph's static carry and
+        the rollout lives in its pool, both overwritten by the next replay
+        (a caller that keeps an earlier state copies it); the statistics are
+        copies. Else eager (a test's replay of the JAX keys, ``ShardedNoise``)."""
+        with span("rollout"):
+            scan = functools.partial(rollout_scan, step, steps=self.cfg.rollout_steps)
+            if not (self._graphed() and type(noise) is Noise):
+                carry, (roll, stats) = scan(carry)
+                return carry, roll, stats
+            if self.rollout_graph is None:
+                self.rollout_graph = RolloutGraph(self.device)
+            carry, (roll, stats) = self.rollout_graph.run(net, noise, carry, scan)
+            return carry, roll, tuple(x.clone() for x in stats)  # the next replay overwrites
 
     # -- the mesh's hooks: identities without one -------------------------------
     def _noise(self, seed: int):
@@ -621,11 +714,7 @@ class RecurrentTrainer(Trainer):
 
     def _epochs(self, ts, packed: torch.Tensor, spec: dict, perms: torch.Tensor,
                 loss_fn) -> dict[str, torch.Tensor]:
-        """Epochs of shuffled minibatches, one permutation per epoch; returns
-        the metrics averaged over every gradient step."""
-        n_mb = self.cfg.num_minibatches
-        history = []
-        for perm in perms:
-            for rows in packed[perm].reshape(n_mb, packed.shape[0] // n_mb, -1):
-                history.append(self._grad_step(ts, rows, spec, loss_fn))
-        return mean_metrics(history)
+        """Epochs of shuffled minibatches (``sweep``), one permutation per
+        epoch; returns the metrics averaged over every gradient step."""
+        return sweep(packed, perms, self.cfg.num_minibatches,
+                     lambda epoch, i, rows: self._grad_step(ts, rows, spec, loss_fn))

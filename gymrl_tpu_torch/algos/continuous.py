@@ -319,13 +319,11 @@ class OffPolicyContinuousTrainer(Trainer):
             mark("update")
             stats.append((tr.final_return, tr.final_length, tr.done))
 
-        ep_ret, ep_len, ep_done = (torch.stack(f) for f in zip(*stats))
+        stats = [torch.stack(f) for f in zip(*stats)]
         new_ts = ts._replace(replay=replay, vec_state=vec_state, learn_steps=learn_steps,
                              env_steps=ts.env_steps + cfg.steps_per_iter * cfg.num_envs)
         means = torch.stack(metrics).mean(dim=0)
-        out = IterOut(ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-                      metrics=dict(zip(self.metric_names, means.unbind())))
-        return new_ts, out
+        return new_ts, self._iter_out(stats, dict(zip(self.metric_names, means.unbind())))
 
     def _step(self, opt: torch.optim.Adam, params: list[torch.Tensor], loss: torch.Tensor) -> None:
         set_grads(params, loss, self.mesh)

@@ -204,14 +204,11 @@ class DQNTrainer(Trainer):
             losses.append(loss)
             stats.append((tr.final_return, tr.final_length, tr.done))
 
-        ep_ret, ep_len, ep_done = (torch.stack(f) for f in zip(*stats))
+        stats = [torch.stack(f) for f in zip(*stats)]
         new_ts = ts._replace(replay=replay, vec_state=vec_state, env_steps=env_steps,
                              episodes=episodes, target_syncs=target_syncs)
-        out = IterOut(
-            ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-            metrics={"loss": torch.stack(losses).mean(), "epsilon": eps.to(self.device)},
-        )
-        return new_ts, out
+        return new_ts, self._iter_out(stats, {"loss": torch.stack(losses).mean(),
+                                              "epsilon": eps.to(self.device)})
 
     # -- internals ------------------------------------------------------------
     def _loss(self, net, target, batch: Transition) -> torch.Tensor:

@@ -466,15 +466,13 @@ class DQNFamilyTrainer(Trainer):
             losses.append(loss)
             stats.append((*ep_stats, done))
 
-        ep_ret, ep_len, ep_done = (torch.stack(f) for f in zip(*stats))
+        stats = [torch.stack(f) for f in zip(*stats)]
         new_ts = ts._replace(
             replay=replay, vec_state=vec_state, window=window, obs_rms=obs_rms,
             reward_scaler=scaler, env_steps=env_steps, learn_steps=learn_steps,
             episodes=episodes, target_syncs=target_syncs, beta=beta,
         )
-        out = IterOut(ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-                      metrics={"loss": torch.stack(losses).mean(), "beta": beta})
-        return new_ts, out
+        return new_ts, self._iter_out(stats, {"loss": torch.stack(losses).mean(), "beta": beta})
 
     # -- internals ------------------------------------------------------------
     def _act(self, net: QNet, nobs, noise, env_steps: int, layers) -> torch.Tensor:

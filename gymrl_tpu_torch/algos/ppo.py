@@ -30,7 +30,6 @@ way (``split_trunk``), as the JAX trainer's layout does.
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -41,7 +40,8 @@ from torch import nn
 from torch.func import functional_call
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RolloutGraph, SweepGraph, Trainer, adam, assert_flat_tp_ok, clip_adam_,
+    IterOut, PhaseTimer, RolloutGraph, RolloutSizes, SweepGraph, Trainer, adam, assert_flat_tp_ok,
+    clip_adam_, sweep,
 )
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -61,7 +61,7 @@ from gymrl_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
-class PPOConfig:
+class PPOConfig(RolloutSizes):
     env_name: str = "LunarLander-v3"
     num_envs: int = 32
     rollout_steps: int = 64  # T; total horizon = T·num_envs (ref: 2048 total)
@@ -92,17 +92,11 @@ class PPOConfig:
     # the counterpart of the reference's Adam over one raveled vector: the
     # same math, fewer and wider kernels. Off: one update per tensor.
     flat_optimizer: bool = False
-    # XLA scan-unroll knobs of the reference. Accepted so configs carry over;
-    # they change nothing here: on a CUDA device without a mesh the rollout and
-    # the SGD sweep are each one CUDA graph (``trainer.graphs``,
-    # ``algos.base.RolloutGraph`` and ``SweepGraph``), and under a mesh or on
-    # the CPU both are Python loops.
+    # XLA scan-unroll knobs of the reference, accepted so configs carry over.
+    # They change nothing here: ``rollout_scan`` and ``sweep`` are Python
+    # loops, or one CUDA graph each (``trainer.graphs``).
     sgd_unroll: int = 1
     rollout_unroll: int = 1
-
-    @property
-    def batch_total(self) -> int:
-        return self.num_envs * self.rollout_steps
 
     @property
     def num_minibatches(self) -> int:
@@ -222,6 +216,20 @@ def categorical_logp_entropy(logits, action):
     return logp, entropy
 
 
+def pick_action(logits, noise, deterministic: bool = False):
+    """The action of ``logits``, i32: the greedy one, or a Gumbel-max draw
+    from ``noise`` (``jax.random.categorical``'s own sampler)."""
+    if not deterministic:
+        logits = logits + noise.gumbel(logits.shape)
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def gumbel_sample(logits, noise):
+    """``(action, logp, entropy)`` of a Gumbel-max draw (``pick_action``)."""
+    action = pick_action(logits, noise)
+    return (action, *categorical_logp_entropy(logits, action))
+
+
 def ppo_head_loss_plain(logits, values, action, logp_old, adv, returns, cfg):
     """The dual-clip PPO loss after the net (JAX: ``PPOTrainer._loss``,
     ``gymrl_tpu/algos/ppo.py``): ``(loss, metrics)`` with ``metrics`` the
@@ -303,9 +311,7 @@ class PPOTrainer(Trainer):
     def policy(self, ts: PPOTrainState, obs, noise, deterministic: bool = True):
         obs = self._norm(ts.obs_rms, obs)
         logits, _ = ts.params(obs)
-        if not deterministic:
-            logits = logits + noise.gumbel(logits.shape)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return pick_action(logits, noise, deterministic)
 
     def train_iter(self, ts: PPOTrainState,
                    timer: PhaseTimer | None = None) -> tuple[PPOTrainState, IterOut]:
@@ -315,18 +321,14 @@ class PPOTrainer(Trainer):
         each phase ends (chip_smoke.py times the phases with CUDA events).
         With ``utils.profiling``'s tracing on, the iteration is a
         ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
-        each close just before their phase's ``timer`` call.
-
-        Where the rollout is a graph replay (``_collect``), the returned
-        state's ``vec_state`` and ``obs_rms`` are the graph's static carry:
-        the next replay overwrites them in place, so a caller that keeps the
-        state of an earlier iteration copies them. The ``IterOut``'s
-        episode statistics are copies the next iteration leaves alone.
+        each close just before their phase's ``timer`` call. On the graph
+        route the returned ``vec_state`` and ``obs_rms`` are the graph's
+        carry (``_rollout_route``).
         """
         cfg = self.cfg
         mark = timer or (lambda phase: None)
         with span("train_iter"):
-            vec_state, obs_rms, roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+            (vec_state, obs_rms), roll, stats = self._collect(ts)
             mark("rollout")
 
             with torch.no_grad(), span("gae"):
@@ -342,9 +344,8 @@ class PPOTrainer(Trainer):
                     cfg.gamma, cfg.gae_lambda,
                 )
                 # every rank's env columns, in rank order: the unsharded rollout
-                obs, action, logp, adv, v_target, ep_ret, ep_len, ep_done = self._gather(
-                    (roll.obs, roll.action, roll.logp, adv, v_target, ep_ret, ep_len, ep_done),
-                    axis=1)
+                obs, action, logp, adv, v_target, stats = self._gather(
+                    (roll.obs, roll.action, roll.logp, adv, v_target, stats), axis=1)
                 adv = standardize(adv)  # rollout-wide (ref :236)
 
                 # The loss reads (obs, action, logp, adv, v_target): pack them into
@@ -372,13 +373,7 @@ class PPOTrainer(Trainer):
             mark("sgd")
 
             new_ts = ts._replace(vec_state=vec_state, obs_rms=obs_rms, env_steps=ts.env_steps + n)
-            out = IterOut(
-                ep_return=ep_ret,
-                ep_length=ep_len,
-                ep_done=ep_done,
-                metrics=metrics | {"lr": torch.full((), lr, device=self.device)},
-            )
-            return new_ts, out
+            return new_ts, self._iter_out(stats, metrics, lr=lr)
 
     # -- internals ------------------------------------------------------------
     def _norm(self, rms, obs):
@@ -399,57 +394,25 @@ class PPOTrainer(Trainer):
             lr = lr * np.maximum(frac, np.float32(0.0))
         return float(lr)
 
-    @torch.no_grad()
     def _collect(self, ts: PPOTrainState):
-        """The T-step rollout: ``(vec_state, obs_rms, Rollout, (final_return,
-        final_length, done))``. On a CUDA device without a mesh, while
-        ``graphs`` is on and the noise is a plain ``Noise``, one replay of a
-        captured CUDA graph (``RolloutGraph``; its first run is the eager
-        warm-up), whose ``Rollout`` lives in the graph's pool until the next
-        replay and whose episode statistics are handed out as copies; else
-        the eager loop (a test's replay of the JAX keys, ``ShardedNoise``)."""
-        with span("rollout"):
-            carry = (ts.vec_state, ts.obs_rms)
-            body = functools.partial(self._rollout, ts.params, ts.noise)
-            if self._graphed() and type(ts.noise) is Noise:
-                if self.rollout_graph is None:
-                    self.rollout_graph = RolloutGraph(self.device)
-                (vec_state, obs_rms), (roll, stats) = self.rollout_graph.run(
-                    ts.params, ts.noise, carry, body)
-                stats = tuple(x.clone() for x in stats)  # the next replay overwrites the graph's
-            else:
-                (vec_state, obs_rms), (roll, stats) = body(carry)
-            return vec_state, obs_rms, roll, stats
+        """The T-step rollout (``_rollout_route``): ``((vec_state, obs_rms),
+        Rollout, (final_return, final_length, done))``."""
 
-    def _rollout(self, net, noise, carry):
-        """The eager rollout from ``carry = (vec_state, obs_rms)``:
-        ``(carry', (Rollout, stats))``, every field stacked over the T steps."""
-        cfg = self.cfg
-        vec_state, obs_rms = carry
-        steps = []
-        for _ in range(cfg.rollout_steps):
-            with span("rollout.step"):
-                with span("policy"):
-                    nobs = self._norm(obs_rms, vec_state.obs)
-                    logits, value = self._rollout_forward(net, nobs)
-                    # Gumbel-max: jax.random.categorical's own sampler
-                    action = torch.argmax(logits + noise.gumbel(logits.shape),
-                                          dim=-1).to(torch.int32)
-                    logp, _ = categorical_logp_entropy(logits, action)
-                vec_state, tr = self.venv.step(vec_state, action, noise)
-                if cfg.normalize_obs:  # statistics of the whole env batch
-                    obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
-                steps.append((
-                    Rollout(
-                        obs=nobs, action=action, logp=logp, value=value,
-                        reward=tr.reward, next_obs=tr.next_obs,
-                        terminated=tr.terminated.float(), done=tr.done.float(),
-                    ),
-                    (tr.final_return, tr.final_length, tr.done),
-                ))
-        roll = Rollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-        return (vec_state, obs_rms), (roll, stats)
+        def step(carry):
+            vec_state, obs_rms = carry
+            with span("policy"):
+                nobs = self._norm(obs_rms, vec_state.obs)
+                logits, value = self._rollout_forward(ts.params, nobs)
+                action, logp, _ = gumbel_sample(logits, ts.noise)
+            vec_state, tr = self.venv.step(vec_state, action, ts.noise)
+            if self.cfg.normalize_obs:  # statistics of the whole env batch
+                obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
+            roll = Rollout(obs=nobs, action=action, logp=logp, value=value, reward=tr.reward,
+                           next_obs=tr.next_obs, terminated=tr.terminated.float(),
+                           done=tr.done.float())
+            return (vec_state, obs_rms), (roll, (tr.final_return, tr.final_length, tr.done))
+
+        return self._rollout_route(ts.params, ts.noise, (ts.vec_state, ts.obs_rms), step)
 
     def _loss(self, net, obs, action, logp_old, adv, returns):
         """The minibatch loss and its metrics: the net (f32, or bf16 with
@@ -482,17 +445,10 @@ class PPOTrainer(Trainer):
 
     def _sweep(self, ts: PPOTrainState, packed: torch.Tensor,
                perms: torch.Tensor) -> torch.Tensor:
-        """The eager sweep: ``_minibatch_step`` on every minibatch of every
-        epoch; the metrics' means over the grad steps, ``[5]``."""
-        cfg = self.cfg
-        d = self.obs_dim
-        history = []
-        for perm in perms:
-            # one shuffle gather per epoch, then contiguous minibatch slices
-            mb_xs = packed[perm].reshape(cfg.num_minibatches, cfg.minibatch_size, d + 4)
-            for mb in mb_xs:
-                history.append(self._minibatch_step(ts, mb))
-        return torch.stack(history).mean(dim=0)
+        """The eager sweep (``sweep``): ``_minibatch_step`` on every minibatch
+        of every epoch; the metrics' means over the grad steps, ``[5]``."""
+        return sweep(packed, perms, self.cfg.num_minibatches,
+                     lambda epoch, i, mb: self._minibatch_step(ts, mb))
 
     def _minibatch_step(self, ts: PPOTrainState, mb: torch.Tensor) -> torch.Tensor:
         """One clipped Adam step on the packed rows ``mb``; returns its

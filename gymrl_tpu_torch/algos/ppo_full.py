@@ -45,10 +45,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, Trainer, adam, assert_flat_tp_ok, grad_step, mean_metrics, pack_fields,
-    unpack_fields,
+    IterOut, PhaseTimer, RolloutSizes, Trainer, adam, assert_flat_tp_ok, grad_step, pack_fields,
+    rollout_scan, sweep, unpack_fields,
 )
-from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
+from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy, gumbel_sample, pick_action
 from gymrl_tpu_torch.core.gae import compute_gae_dual_lambda, standardize
 from gymrl_tpu_torch.core.noise import Noise
 from gymrl_tpu_torch.envs.registry import make_vec
@@ -59,7 +59,7 @@ from gymrl_tpu_torch.nn.mhc import MHCBackbone
 
 
 @dataclass(frozen=True)
-class PPOFullConfig:
+class PPOFullConfig(RolloutSizes):
     env_name: str = "LunarLander-v3"
     num_envs: int = 64
     rollout_steps: int = 64  # T·B = 4096 (reference update_freq)
@@ -91,10 +91,6 @@ class PPOFullConfig:
     flat_optimizer: bool = False
     max_train_steps: int = 5_000_000
     solve_threshold: float = 200.0
-
-    @property
-    def batch_total(self) -> int:
-        return self.num_envs * self.rollout_steps
 
     @property
     def num_minibatches(self) -> int:
@@ -242,9 +238,7 @@ class PPOFullTrainer(Trainer):
     @torch.no_grad()
     def policy(self, ts: FullTrainState, obs, noise, deterministic: bool = True):
         logits, _ = ts.params(obs)
-        if not deterministic:
-            logits = logits + noise.gumbel(logits.shape)
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return pick_action(logits, noise, deterministic)
 
     def train_iter(self, ts: FullTrainState,
                    timer: PhaseTimer | None = None) -> tuple[FullTrainState, IterOut]:
@@ -253,7 +247,7 @@ class PPOFullTrainer(Trainer):
         values, dual-λ GAE and the packed rows) and "sgd" as each phase ends."""
         cfg = self.cfg
         mark = timer or (lambda phase: None)
-        vec_state, roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+        vec_state, roll, stats = self._collect(ts)
         mark("rollout")
         n = cfg.batch_total
         with torch.no_grad():
@@ -264,8 +258,8 @@ class PPOFullTrainer(Trainer):
                 roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
             )
             # every rank's env columns, in rank order: the unsharded rollout
-            roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
-                (roll._replace(next_obs=None), adv, returns, (ep_ret, ep_len, ep_done)), axis=1)
+            roll, adv, returns, stats = self._gather(
+                (roll._replace(next_obs=None), adv, returns, stats), axis=1)
             packed, spec = pack_fields({
                 "obs": roll.obs.reshape(n, -1), "action": roll.action.reshape(n),
                 "logp": roll.logp.reshape(n), "old_entropy": roll.entropy.reshape(n),
@@ -280,55 +274,47 @@ class PPOFullTrainer(Trainer):
         mark("sgd")
 
         new_ts = ts._replace(vec_state=vec_state, env_steps=ts.env_steps + n)
-        scalars = {"lr": lr, "ent_coef": ent_coef}
-        return new_ts, IterOut(
-            ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-            metrics=metrics | {k: torch.full((), v, device=self.device)
-                               for k, v in scalars.items()},
-        )
+        return new_ts, self._iter_out(stats, metrics, lr=lr, ent_coef=ent_coef)
 
     # -- internals ------------------------------------------------------------
     @torch.no_grad()
     def _collect(self, ts: FullTrainState):
-        vec_state, noise = ts.vec_state, ts.noise
-        steps = []
-        for _ in range(self.cfg.rollout_steps):
+        """The T-step rollout (``rollout_scan``, eager): ``(vec_state,
+        FullRollout, (final_return, final_length, done))``."""
+
+        def step(vec_state):
             obs = vec_state.obs
             logits, value = ts.params(obs)
-            # Gumbel-max: jax.random.categorical's own sampler
-            action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
-            logp, entropy = categorical_logp_entropy(logits, action)
-            vec_state, tr = self.venv.step(vec_state, action, noise)
-            steps.append((
-                FullRollout(obs=obs, action=action, logp=logp, value=value, entropy=entropy,
-                            reward=tr.reward, next_obs=tr.next_obs, done=tr.done.float()),
-                (tr.final_return, tr.final_length, tr.done),
-            ))
-        roll = FullRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
+            action, logp, entropy = gumbel_sample(logits, ts.noise)
+            vec_state, tr = self.venv.step(vec_state, action, ts.noise)
+            roll = FullRollout(obs=obs, action=action, logp=logp, value=value, entropy=entropy,
+                               reward=tr.reward, next_obs=tr.next_obs, done=tr.done.float())
+            return vec_state, (roll, (tr.final_return, tr.final_length, tr.done))
+
+        vec_state, (roll, stats) = rollout_scan(step, ts.vec_state, self.cfg.rollout_steps)
         return vec_state, roll, stats
 
     def _sgd(self, ts: FullTrainState, packed: torch.Tensor, spec: dict,
              ent_coef: float) -> dict[str, torch.Tensor]:
-        """Epochs of shuffled minibatches, each with its clip-cov mask
-        (all ones when clip-cov is off); returns the metrics averaged over
-        every gradient step."""
+        """Epochs of shuffled minibatches (``sweep``), each with its clip-cov
+        mask (all ones when clip-cov is off); returns the metrics averaged
+        over every gradient step."""
         cfg = self.cfg
         n_mb = cfg.num_minibatches
         mb_size = cfg.batch_total // n_mb
         perms = ts.noise.permutations(cfg.num_epochs, cfg.batch_total)
         cov_u = (ts.noise.cov_uniforms(cfg.num_epochs, n_mb, mb_size)
                  if cfg.clip_cov_ratio > 0 else None)
-        history = []
-        for e, perm in enumerate(perms):
-            for i, rows in enumerate(packed[perm].reshape(n_mb, mb_size, -1)):
-                mb = unpack_fields(rows, spec)
-                mb["cov_keep"] = (torch.ones(mb_size, device=rows.device) if cov_u is None
-                                  else cov_drop_mask(cov_u[e, i], self._covs(ts.params, mb),
-                                                     cfg.clip_cov_ratio, cfg.clip_cov_min,
-                                                     cfg.clip_cov_max))
-                history.append(self._grad_step(ts, mb, ent_coef))
-        return mean_metrics(history)
+
+        def step(epoch, i, rows):
+            mb = unpack_fields(rows, spec)
+            mb["cov_keep"] = (torch.ones(mb_size, device=rows.device) if cov_u is None
+                              else cov_drop_mask(cov_u[epoch, i], self._covs(ts.params, mb),
+                                                 cfg.clip_cov_ratio, cfg.clip_cov_min,
+                                                 cfg.clip_cov_max))
+            return self._grad_step(ts, mb, ent_coef)
+
+        return sweep(packed, perms, n_mb, step)
 
     @torch.no_grad()
     def _covs(self, net, mb: dict) -> torch.Tensor:

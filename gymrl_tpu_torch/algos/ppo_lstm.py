@@ -31,8 +31,8 @@ the cell's input maps and the heads once over all ``mb·L`` steps; only the
 cell's hidden side is a loop over L. ``train_iter`` updates the net and
 optimizer in place and makes no host sync. On a CUDA device without a mesh,
 while ``trainer.graphs`` is on, the T-step rollout is one replay of a
-captured CUDA graph (``RolloutGraph``, as ``PPOTrainer``'s); the rest of the
-iteration, the update included, runs eagerly. Every draw comes from
+captured CUDA graph (``Trainer._rollout_route``, as ``PPOTrainer``'s); the
+rest of the iteration, the update included, runs eagerly. Every draw comes from
 ``ts.noise`` in the reference's order: per rollout step the action's
 Gumbels, then the env's draws; then one permutation per epoch.
 
@@ -55,10 +55,10 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, RolloutGraph, adam, assert_flat_tp_ok, masked_mean,
-    pack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, RolloutGraph, SeqRolloutSizes, adam, assert_flat_tp_ok,
+    masked_mean, pack_fields, to_chunks,
 )
-from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
+from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy, gumbel_sample, pick_action
 from gymrl_tpu_torch.algos.ppo_full import SiluRMSMLP, annealed
 from gymrl_tpu_torch.core.gae import compute_gae_dual_lambda, standardize
 from gymrl_tpu_torch.core.noise import Noise
@@ -71,7 +71,7 @@ from gymrl_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
-class PPOLSTMConfig:
+class PPOLSTMConfig(SeqRolloutSizes):
     env_name: str = "LunarLander-v3"
     num_envs: int = 64
     rollout_steps: int = 64  # T·B = 4096 (reference update_freq)
@@ -107,25 +107,6 @@ class PPOLSTMConfig:
     cell_unroll: int = 1
     max_train_steps: int = 5_000_000
     solve_threshold: float = 200.0
-
-    @property
-    def batch_total(self) -> int:
-        return self.num_envs * self.rollout_steps
-
-    @property
-    def seqs_per_rollout(self) -> int:
-        if self.rollout_steps % self.seq_len:
-            raise ValueError(f"seq_len {self.seq_len} must divide rollout_steps "
-                             f"{self.rollout_steps}")
-        return (self.rollout_steps // self.seq_len) * self.num_envs
-
-    @property
-    def num_minibatches(self) -> int:
-        n = self.seqs_per_rollout
-        mb = min(self.seq_minibatch, n)
-        if n % mb:
-            raise ValueError(f"{n} sequences must divide into minibatches of {mb}")
-        return n // mb
 
 
 class RNDPair(nn.Module):
@@ -264,9 +245,7 @@ class PPOLSTMTrainer(RecurrentTrainer):
     def policy_step(self, ts: LSTMTrainState, carry, obs, noise, deterministic: bool = True):
         """One step threading the packed hidden: returns ``(h', action)``."""
         h, logits, _ = ts.params.step(carry, obs)
-        if not deterministic:
-            logits = logits + noise.gumbel(logits.shape)
-        return h, torch.argmax(logits, dim=-1).to(torch.int32)
+        return h, pick_action(logits, noise, deterministic)
 
     def train_iter(self, ts: LSTMTrainState,
                    timer: PhaseTimer | None = None) -> tuple[LSTMTrainState, IterOut]:
@@ -276,21 +255,14 @@ class PPOLSTMTrainer(RecurrentTrainer):
         With ``utils.profiling``'s tracing on, the iteration is a
         ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
         each close just before their phase's ``timer`` call, as
-        ``PPOTrainer``'s do.
-
-        Where the rollout is a graph replay (``_collect``), the returned
-        state's ``vec_state`` and ``hidden`` are the graph's static carry:
-        the next replay overwrites them in place, so a caller that keeps the
-        state of an earlier iteration copies them. The rollout itself lives
-        in the graph's pool until the next replay; every reader of it here
-        (the successor forward on ``h_post``, GAE, ``_chunks`` and the
-        ``cat`` of ``pack_fields``) runs within this iteration. The
-        ``IterOut``'s episode statistics are copies the next iteration
-        leaves alone."""
+        ``PPOTrainer``'s do. On the graph route the returned ``vec_state``
+        and ``hidden`` are the graph's carry (``_rollout_route``), and every
+        reader of the rollout in the graph's pool (the successor forward,
+        GAE, ``_chunks``, ``pack_fields``) runs within this iteration."""
         cfg = self.cfg
         mark = timer or (lambda phase: None)
         with span("train_iter"):
-            (vec_state, hidden), roll, (ep_ret, ep_len, ep_done) = self._collect(ts)
+            (vec_state, hidden), roll, stats = self._collect(ts)
             mark("rollout")
             with torch.no_grad(), span("gae"):
                 # successor values under the post-step hidden, one batched step
@@ -302,9 +274,8 @@ class PPOLSTMTrainer(RecurrentTrainer):
                     roll.done, roll.done, cfg.gamma, cfg.lam_actor, cfg.lam_critic,
                 )
                 # every rank's env columns, in rank order: the unsharded rollout
-                roll, adv, returns, (ep_ret, ep_len, ep_done) = self._gather(
-                    (roll._replace(next_obs=None, h_post=None), adv, returns,
-                     (ep_ret, ep_len, ep_done)), axis=1)
+                roll, adv, returns, stats = self._gather(
+                    (roll._replace(next_obs=None, h_post=None), adv, returns, stats), axis=1)
                 packed, spec = pack_fields(self._chunks(roll, standardize(adv), returns))
             mark("gae")
 
@@ -319,79 +290,35 @@ class PPOLSTMTrainer(RecurrentTrainer):
 
             new_ts = ts._replace(vec_state=vec_state, hidden=hidden,
                                  env_steps=ts.env_steps + cfg.batch_total)
-            scalars = {"lr": lr, "ent_coef": ent_coef}
-            return new_ts, IterOut(
-                ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-                metrics=metrics | {k: torch.full((), v, device=self.device)
-                                   for k, v in scalars.items()},
-            )
+            return new_ts, self._iter_out(stats, metrics, lr=lr, ent_coef=ent_coef)
 
     # -- internals ------------------------------------------------------------
-    @torch.no_grad()
     def _collect(self, ts: LSTMTrainState):
-        """The T-step rollout: ``((vec_state, hidden), LSTMRollout,
-        (final_return, final_length, done))``. On a CUDA device without a
-        mesh, while ``graphs`` is on and the noise is a plain ``Noise``, one
-        replay of a captured CUDA graph (``RolloutGraph``; its first run is
-        the eager warm-up), whose ``LSTMRollout`` lives in the graph's pool
-        until the next replay and whose episode statistics are handed out as
-        copies; else the eager loop (a test's replay of the JAX keys,
-        ``ShardedNoise``)."""
-        with span("rollout"):
-            carry = (ts.vec_state, ts.hidden)
-            body = functools.partial(self._rollout, ts.params, ts.noise)
-            if self._graphed() and type(ts.noise) is Noise:
-                if self.rollout_graph is None:
-                    self.rollout_graph = RolloutGraph(self.device)
-                carry, (roll, stats) = self.rollout_graph.run(ts.params, ts.noise, carry, body)
-                stats = tuple(x.clone() for x in stats)  # the next replay overwrites the graph's
-            else:
-                carry, (roll, stats) = body(carry)
-            return carry, roll, stats
+        """The T-step rollout (``_rollout_route``): ``((vec_state, hidden),
+        LSTMRollout, (final_return, final_length, done))``. The net is called
+        as a module, so an instance's own ``forward`` is what runs (and what a
+        capture records)."""
 
-    def _rollout(self, net, noise, carry):
-        """The eager rollout from ``carry = (vec_state, hidden)``:
-        ``(carry', (LSTMRollout, stats))``, every field stacked over the T
-        steps. ``net`` is called as a module, so an instance's own
-        ``forward`` is what runs (and what a capture records)."""
-        vec_state, hidden = carry
-        steps = []
-        for _ in range(self.cfg.rollout_steps):
-            with span("rollout.step"):
-                obs, h_pre = vec_state.obs, hidden
-                with span("policy"):
-                    hidden, logits, value, predict, target = net(hidden, obs)
-                    # Gumbel-max: jax.random.categorical's own sampler
-                    action = torch.argmax(logits + noise.gumbel(logits.shape),
-                                          dim=-1).to(torch.int32)
-                    logp, entropy = categorical_logp_entropy(logits, action)
-                vec_state, tr = self.venv.step(vec_state, action, noise)
-                rnd_reward = torch.square(predict - target).mean(dim=-1)
-                h_post = hidden
-                # a new episode starts fresh
-                hidden = torch.where(tr.done[:, None], 0.0, hidden)
-                steps.append((
-                    LSTMRollout(obs=obs, action=action, logp=logp, value=value,
-                                entropy=entropy, reward=tr.reward + rnd_reward,
-                                next_obs=tr.next_obs, h_pre=h_pre, h_post=h_post,
-                                done=tr.done.float()),
-                    (tr.final_return, tr.final_length, tr.done),
-                ))
-        roll = LSTMRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-        return (vec_state, hidden), (roll, stats)
+        def step(carry):
+            vec_state, h_pre = carry
+            obs = vec_state.obs
+            with span("policy"):
+                h_post, logits, value, predict, target = ts.params(h_pre, obs)
+                action, logp, entropy = gumbel_sample(logits, ts.noise)
+            vec_state, tr = self.venv.step(vec_state, action, ts.noise)
+            rnd_reward = torch.square(predict - target).mean(dim=-1)
+            hidden = torch.where(tr.done[:, None], 0.0, h_post)  # a new episode starts fresh
+            roll = LSTMRollout(obs=obs, action=action, logp=logp, value=value, entropy=entropy,
+                               reward=tr.reward + rnd_reward, next_obs=tr.next_obs, h_pre=h_pre,
+                               h_post=h_post, done=tr.done.float())
+            return (vec_state, hidden), (roll, (tr.final_return, tr.final_length, tr.done))
+
+        return self._rollout_route(ts.params, ts.noise, (ts.vec_state, ts.hidden), step)
 
     def _chunks(self, roll: LSTMRollout, adv, returns) -> dict[str, torch.Tensor]:
         """The training sequences: each env column cut into ``seq_len``-step
-        chunks, with the stored hidden at each chunk's start."""
-        L, B = self.cfg.seq_len, self.cfg.num_envs
-        n_chunks = self.cfg.rollout_steps // L
-
-        def to_seq(x):
-            # [T, B, ...] -> [n_chunks, L, B, ...] -> [n_chunks·B, L, ...]
-            x = x.reshape((n_chunks, L) + tuple(x.shape[1:])).movedim(2, 1)
-            return x.reshape((n_chunks * B, L) + tuple(x.shape[3:]))
-
+        chunks (``to_chunks``), with the stored hidden at each chunk's start."""
+        to_seq = functools.partial(to_chunks, seq_len=self.cfg.seq_len)
         return {"obs": to_seq(roll.obs), "action": to_seq(roll.action),
                 "logp": to_seq(roll.logp), "old_entropy": to_seq(roll.entropy),
                 "old_value": to_seq(roll.value), "adv": to_seq(adv), "ret": to_seq(returns),

@@ -47,6 +47,7 @@ minibatch; the masked means sum their active counts over ``data``.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -54,9 +55,10 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, adam, assert_flat_tp_ok, masked_mean, pack_fields,
+    IterOut, PhaseTimer, RecurrentTrainer, SeqRolloutSizes, adam, assert_flat_tp_ok, masked_mean,
+    pack_fields, rollout_scan, to_chunks,
 )
-from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy
+from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy, gumbel_sample, pick_action
 from gymrl_tpu_torch.core.gae import compute_gae, standardize
 from gymrl_tpu_torch.core.noise import Noise
 from gymrl_tpu_torch.core.normalization import (
@@ -73,7 +75,7 @@ from gymrl_tpu_torch.replay.episode import episode_buffer_pack
 
 
 @dataclass(frozen=True)
-class PPORNNConfig:
+class PPORNNConfig(SeqRolloutSizes):
     env_name: str = "LunarLander-v3"
     num_envs: int = 32
     rollout_steps: int = 128  # T per env per iteration
@@ -106,30 +108,11 @@ class PPORNNConfig:
     solve_threshold: float | None = 200.0
 
     @property
-    def batch_total(self) -> int:
-        return self.num_envs * self.rollout_steps
-
-    @property
-    def seqs_per_rollout(self) -> int:
-        if self.rollout_steps % self.seq_len:
-            raise ValueError(f"seq_len {self.seq_len} must divide rollout_steps "
-                             f"{self.rollout_steps}")
-        return (self.rollout_steps // self.seq_len) * self.num_envs
-
-    @property
     def n_train_items(self) -> int:
         """Sequences (chunk mode) or episode rows (whole-episode mode)."""
         if self.whole_episode_bptt:
             return self.num_envs * self.episode_rows_per_env
         return self.seqs_per_rollout
-
-    @property
-    def num_minibatches(self) -> int:
-        n = self.n_train_items
-        mb = min(self.seq_minibatch, n)
-        if n % mb:
-            raise ValueError(f"{n} sequences must divide into minibatches of {mb}")
-        return n // mb
 
 
 class RecurrentActorCritic(nn.Module):
@@ -251,9 +234,7 @@ class PPORNNTrainer(RecurrentTrainer):
     def policy_step(self, ts: RNNTrainState, carry, obs, noise, deterministic: bool = True):
         """One step threading the hidden: returns ``(h', action)``."""
         h, logits, _ = self._apply_cell(ts.params, carry, self._norm(ts.obs_rms, obs))
-        if not deterministic:
-            logits = logits + noise.gumbel(logits.shape)
-        return h, torch.argmax(logits, dim=-1).to(torch.int32)
+        return h, pick_action(logits, noise, deterministic)
 
     def train_iter(self, ts: RNNTrainState,
                    timer: PhaseTimer | None = None) -> tuple[RNNTrainState, IterOut]:
@@ -279,37 +260,34 @@ class PPORNNTrainer(RecurrentTrainer):
 
     @torch.no_grad()
     def _collect(self, ts: RNNTrainState):
+        """The T-step rollout (``rollout_scan``, eager): ``((vec_state,
+        hidden, obs_rms, reward_scaler), RNNRollout, (final_return,
+        final_length, done))``."""
         cfg = self.cfg
-        vec_state, hidden, obs_rms, scaler = ts.vec_state, ts.hidden, ts.obs_rms, ts.reward_scaler
-        noise = ts.noise
-        steps = []
-        for _ in range(cfg.rollout_steps):
+
+        def step(carry):
+            vec_state, h_pre, obs_rms, scaler = carry
             nobs = self._norm(obs_rms, vec_state.obs)
-            h_pre = hidden
-            hidden, logits, value = self._apply_cell(ts.params, hidden, nobs)
-            # Gumbel-max: jax.random.categorical's own sampler
-            action = torch.argmax(logits + noise.gumbel(logits.shape), dim=-1).to(torch.int32)
-            logp, _ = categorical_logp_entropy(logits, action)
-            vec_state, tr = self.venv.step(vec_state, action, noise)
+            h_post, logits, value = self._apply_cell(ts.params, h_pre, nobs)
+            action, logp, _ = gumbel_sample(logits, ts.noise)
+            vec_state, tr = self.venv.step(vec_state, action, ts.noise)
             if cfg.normalize_obs:  # statistics of the whole env batch
                 obs_rms = rms_update_batch(obs_rms, self._gather(tr.next_obs))
             reward = tr.reward
             if cfg.scale_rewards:
                 scaler, reward = reward_scaler_step(scaler, tr.reward, self._gather)
                 scaler = reward_scaler_reset(scaler, tr.done)
-            h_post = hidden
-            hidden = torch.where(tr.done[:, None], 0.0, hidden)  # a new episode starts fresh
-            steps.append((
-                RNNRollout(
-                    obs=nobs, action=action, logp=logp, value=value, reward=reward,
-                    next_obs=self._norm(obs_rms, tr.next_obs), h_pre=h_pre, h_post=h_post,
-                    terminated=tr.terminated.float(), done=tr.done.float(),
-                ),
-                (tr.final_return, tr.final_length, tr.done),
-            ))
-        roll = RNNRollout(*(torch.stack(f) for f in zip(*(r for r, _ in steps))))
-        stats = tuple(torch.stack(f) for f in zip(*(s for _, s in steps)))
-        return (vec_state, hidden, obs_rms, scaler), roll, stats
+            hidden = torch.where(tr.done[:, None], 0.0, h_post)  # a new episode starts fresh
+            roll = RNNRollout(obs=nobs, action=action, logp=logp, value=value, reward=reward,
+                              next_obs=self._norm(obs_rms, tr.next_obs), h_pre=h_pre,
+                              h_post=h_post, terminated=tr.terminated.float(),
+                              done=tr.done.float())
+            return (vec_state, hidden, obs_rms, scaler), (roll, (tr.final_return,
+                                                                 tr.final_length, tr.done))
+
+        carry, (roll, stats) = rollout_scan(
+            step, (ts.vec_state, ts.hidden, ts.obs_rms, ts.reward_scaler), cfg.rollout_steps)
+        return carry, roll, stats
 
     def _rollout_and_data(self, ts: RNNTrainState, mark: PhaseTimer):
         """Collection, then the successor values, GAE and the packed training
@@ -356,14 +334,7 @@ class PPORNNTrainer(RecurrentTrainer):
                      "dropped_episodes": packed.dropped_episodes.float()}
             return data, extra
 
-        L, B = cfg.seq_len, cfg.num_envs
-        n_chunks = cfg.rollout_steps // L
-
-        def to_seq(x):
-            # [T, B, ...] -> [n_chunks, L, B, ...] -> [n_chunks·B, L, ...]
-            x = x.reshape((n_chunks, L) + tuple(x.shape[1:])).movedim(2, 1)
-            return x.reshape((n_chunks * B, L) + tuple(x.shape[3:]))
-
+        to_seq = functools.partial(to_chunks, seq_len=cfg.seq_len)
         data = {"obs": to_seq(roll.obs), "action": to_seq(roll.action),
                 "logp": to_seq(roll.logp), "adv": to_seq(adv), "v_target": to_seq(v_target),
                 "h0": to_seq(roll.h_pre)[:, 0]}  # the stored hidden at each chunk start
@@ -398,11 +369,9 @@ class PPORNNTrainer(RecurrentTrainer):
 
     def _finish(self, ts: RNNTrainState, carry, stats, metrics):
         vec_state, hidden, obs_rms, scaler = carry
-        ep_ret, ep_len, ep_done = stats
         new_ts = ts._replace(vec_state=vec_state, hidden=hidden, obs_rms=obs_rms,
                              reward_scaler=scaler, env_steps=ts.env_steps + self.cfg.batch_total)
-        return new_ts, IterOut(ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-                               metrics=metrics)
+        return new_ts, self._iter_out(stats, metrics)
 
 
 def ppo_rnn_lunarlander_config(**kw) -> PPORNNConfig:

@@ -138,12 +138,11 @@ class QLearningTrainer(Trainer):
                                                               sample_count, mark)
             sample_count += cfg.num_envs
             stats.append((tr.final_return, tr.final_length, tr.done))
-        ep_ret, ep_len, ep_done = (torch.stack(f) for f in zip(*stats))
+        stats = [torch.stack(f) for f in zip(*stats)]
         new_ts = ts._replace(q_table=q_table, vec_state=vec_state, sample_count=sample_count,
                              env_steps=ts.env_steps + cfg.steps_per_iter * cfg.num_envs)
         metrics = {"epsilon": torch.tensor(eps, device=self.device), "q_max": q_table.max()}
-        return new_ts, IterOut(ep_return=ep_ret, ep_length=ep_len, ep_done=ep_done,
-                               metrics=metrics)
+        return new_ts, self._iter_out(stats, metrics)
 
     def success_rate(self, ts: QLearningTrainState, noise, episodes: int = 20) -> float:
         """FrozenLake eval metric (qlearning_frozenlake.py:131-152)."""

@@ -261,7 +261,7 @@ def test_two_train_iters_match_reference(ref, ref_ts0, ref_rollout_and_gae, flat
         ts, out = trainer.train_iter(ts)
         where = f"iteration {it}"
 
-        _, _, roll, _ = collected[-1][1]
+        _, roll, _ = collected[-1][1]
         np.testing.assert_array_equal(roll.action.numpy(), roll_ref.action, err_msg=where)
         shaping = np.abs(jax.device_get(jts.vec_state.env_state.prev_shaping)).max() + 100.0
         reward_atol = STATE_ATOL + SHAPING_RTOL * shaping
@@ -341,7 +341,7 @@ def test_rollout_bf16_stays_close_to_f32():
     rolls = {}
     for bf16 in (False, True):
         trainer = _small_trainer(rollout_bf16=bf16)
-        rolls[bf16] = trainer._collect(trainer.init(0))[2]
+        rolls[bf16] = trainer._collect(trainer.init(0))[1]
     same = rolls[False].action[0] == rolls[True].action[0]
     assert same.any()
     torch.testing.assert_close(rolls[True].logp[0][same], rolls[False].logp[0][same],

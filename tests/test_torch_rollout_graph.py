@@ -1,5 +1,6 @@
-"""PPO's T-step rollout as one replay of a captured CUDA graph
-(``algos.base.RolloutGraph``), held on the CPU against the eager rollout,
+"""The T-step rollouts of PPO and of the recurrent full-tricks PPO as one
+replay of a captured CUDA graph (``Trainer._rollout_route``,
+``algos.base.RolloutGraph``), held on the CPU against the eager rollout,
 which the lockstep tests hold to the JAX package.
 
 A CUDA graph runs only on the card; ``chip_smoke.py`` phase 20 holds the
@@ -15,26 +16,39 @@ for, as ``test_torch_sgd_graph.py`` stands in for them:
   * ``Lib``'s launches compute the plain lander step and reset into the
     wrapper's outputs, so both routes go through ``kernels.lunarlander``
     and count ``kernels.LAUNCHES``.
-The tests:
+Each test runs for both trainers that take the route, ``PPOTrainer`` (on the
+lander and CartPole) and ``PPOLSTMTrainer`` (GRU + mHC on the lander, LSTM +
+PSCN on CartPole, whose episodes end within a few rollouts, so the hidden's
+reset at done runs):
   * (a) the route: only a CUDA trainer without a mesh, with ``graphs`` on
-    and a plain ``Noise``, takes the graph;
-  * (b) warm-up, capture and replays leave, to the bit, the ``Rollout``,
-    episode statistics, carry, generator state and ``kernels.LAUNCHES`` of
-    as many eager rollouts, the capture running none of the library; whole
-    ``train_iter``s equal the eager ones, rows handed to ``_sgd`` included;
+    and a plain ``Noise``, takes the graph; ppo_full, recurrent PPO and PPG
+    never do;
+  * (b) warm-up, capture and replays leave, to the bit, the rollout, episode
+    statistics, carry, generator state and ``kernels.LAUNCHES`` of as many
+    eager rollouts, the capture running none of the library; whole
+    ``train_iter``s equal the eager ones, rows handed to the update included;
   * (c) a restored state, or an external reset, is copied in and replays;
     replaced params or another generator (a restore into a fresh state)
     capture again; a failed capture raises and keeps no graph;
-  * (d) ``IterOut``'s statistics survive the next iteration.
+  * (d) a net whose ``forward`` is replaced at construction (the benchmark's
+    ``no_rnd_reward`` fault) is captured with the replacement;
+  * (e) ``IterOut``'s statistics survive the next iteration.
 """
+
+import sys
 
 import pytest
 import torch
 from torch.utils._pytree import tree_flatten
 
 from gymrl_tpu_torch import kernels
+from gymrl_tpu_torch.algos import base
 from gymrl_tpu_torch.algos import ppo as ppo_mod
+from gymrl_tpu_torch.algos.ppg import PPGConfig, PPGTrainer
 from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
+from gymrl_tpu_torch.algos.ppo_full import PPOFullConfig, PPOFullTrainer
+from gymrl_tpu_torch.algos.ppo_lstm import LSTMRollout, PPOLSTMConfig, PPOLSTMTrainer
+from gymrl_tpu_torch.algos.ppo_rnn import PPORNNConfig, PPORNNTrainer
 from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
 from gymrl_tpu_torch.envs import lunarlander as ll
 from gymrl_tpu_torch.kernels import lunarlander as kl
@@ -191,16 +205,40 @@ def lib(monkeypatch):
     return fake
 
 
-ENVS = {"lander": dict(num_envs=8, rollout_steps=24),
-        "cartpole": dict(env_name="CartPole-v1", num_envs=8, rollout_steps=16)}
+# The two trainers that take the route: each one's config, its carry's fields
+# in the train state, its update (the method handed the packed rows, and where
+# the permutations sit among its other arguments) and its cases, the first the
+# default.
+KINDS = {
+    "ppo": (PPOTrainer, PPOConfig, dict(minibatch_size=32, num_epochs=1, hidden_dim=16),
+            ("vec_state", "obs_rms"), ("_sgd", 0)),
+    "lstm": (PPOLSTMTrainer, PPOLSTMConfig,
+             dict(num_envs=4, rollout_steps=8, seq_len=4, seq_minibatch=4, num_epochs=1,
+                  mhc_dim=16, rnn_hidden=16, rnd_embed=32, flat_optimizer=True),
+             ("vec_state", "hidden"), ("_epochs", 1)),
+}
+CASES = {
+    "ppo": {"lander": dict(num_envs=8, rollout_steps=24),
+            "cartpole": dict(env_name="CartPole-v1", num_envs=8, rollout_steps=16)},
+    "lstm": {"gru_mhc": dict(rnn_cell="gru", use_mhc=True),
+             "lstm_pscn": dict(rnn_cell="lstm", use_mhc=False, env_name="CartPole-v1",
+                               rollout_steps=16)},
+}
+PAIRS = [(kind, case) for kind in KINDS for case in CASES[kind]]
 
 
-def _trainer(env="lander", graphed=False, **kw):
-    cfg = dict(minibatch_size=32, num_epochs=1, hidden_dim=16, **ENVS[env])
-    trainer = PPOTrainer(PPOConfig(**{**cfg, **kw}), device="cpu")
+def _trainer(kind, case=None, graphed=False, **kw):
+    cls, cfg_cls, small, _, _ = KINDS[kind]
+    case = case or next(iter(CASES[kind]))
+    trainer = cls(cfg_cls(**{**small, **CASES[kind][case], **kw}), device="cpu")
+    trainer.kind = kind
     if graphed:
         trainer._graphed = lambda: True  # the CUDA route, on the CPU's tensors
     return trainer
+
+
+def _carry_of(trainer, ts) -> tuple:
+    return tuple(getattr(ts, f) for f in KINDS[trainer.kind][3])
 
 
 def _leaves(tree) -> list[torch.Tensor]:
@@ -219,10 +257,10 @@ def _collects(trainer, ts, n):
     got = []
     for _ in range(n):
         before = dict(kernels.LAUNCHES)
-        vec_state, obs_rms, roll, stats = trainer._collect(ts)
-        ts = ts._replace(vec_state=vec_state, obs_rms=obs_rms)
+        carry, roll, stats = trainer._collect(ts)
+        ts = ts._replace(**dict(zip(KINDS[trainer.kind][3], carry)))
         got.append({"roll": [x.clone() for x in roll], "stats": [x.clone() for x in stats],
-                    "carry": [x.clone() for x in _leaves((vec_state, obs_rms))],
+                    "carry": [x.clone() for x in _leaves(carry)],
                     "generator": ts.noise.generator.get_state(),
                     "launches": {k: kernels.LAUNCHES[k] - n for k, n in before.items()}})
     return ts, got
@@ -247,27 +285,40 @@ class ReplayedNoise(Noise):
     JAX keys is another class)."""
 
 
+class Holder:
+    """Stands in for ``RolloutGraph``: records what it is made and run with,
+    and runs the body eagerly."""
+
+    made: list = []
+    runs: list = []
+
+    def __init__(self, device):
+        Holder.made.append(device)
+
+    def run(self, net, noise, carry, body):
+        Holder.runs.append((net, noise, carry))
+        return body(carry)
+
+
+@pytest.fixture
+def holder(monkeypatch):
+    monkeypatch.setattr(Holder, "made", [])
+    monkeypatch.setattr(Holder, "runs", [])
+    monkeypatch.setattr(base, "RolloutGraph", Holder)
+    scans = []
+    scan = base.rollout_scan
+    monkeypatch.setattr(base, "rollout_scan", lambda *a, **k: scans.append(a) or scan(*a, **k))
+    return scans
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
 @pytest.mark.parametrize("case,graphed", [
     ("cuda", True), ("cpu", False), ("mesh", False), ("graphs_off", False),
     ("replayed_noise", False), ("sharded_noise", False)])
 def test_only_a_cuda_trainer_without_a_mesh_with_plain_noise_takes_the_graph(
-        monkeypatch, case, graphed):
-    trainer = _trainer()
+        holder, kind, case, graphed):
+    trainer = _trainer(kind)
     ts = trainer.init(0)
-    made, eager = [], []
-
-    class Holder:
-        def __init__(self, device):
-            made.append(device)
-
-        def run(self, net, noise, carry, body):
-            assert noise is ts.noise
-            assert carry[0] is ts.vec_state and carry[1] is ts.obs_rms
-            return body(carry)
-
-    monkeypatch.setattr(ppo_mod, "RolloutGraph", Holder)
-    rollout = trainer._rollout
-    monkeypatch.setattr(trainer, "_rollout", lambda *a: eager.append(a) or rollout(*a))
     if case != "cpu":
         trainer.device = torch.device("cuda")  # only the route reads it here
     trainer.graphs = case != "graphs_off"
@@ -277,20 +328,40 @@ def test_only_a_cuda_trainer_without_a_mesh_with_plain_noise_takes_the_graph(
     if case == "sharded_noise":
         ts = ts._replace(noise=ShardedNoise(ts.noise, 0, 1))
     trainer._collect(ts)
-    assert len(made) == int(graphed) and len(eager) == 1
+    assert len(Holder.made) == int(graphed) and len(holder) == 1
     assert (trainer.rollout_graph is not None) is graphed
+    for net, noise, carry in Holder.runs:
+        assert net is ts.params and noise is ts.noise
+        assert all(a is b for a, b in zip(carry, _carry_of(trainer, ts)))
+
+
+@pytest.mark.parametrize("cls,cfg", [
+    (PPOFullTrainer, PPOFullConfig(num_envs=4, rollout_steps=8, minibatch_size=16, mhc_dim=16)),
+    (PPORNNTrainer, PPORNNConfig(num_envs=4, rollout_steps=8, seq_len=4, feature_dim=16)),
+    (PPGTrainer, PPGConfig(num_envs=4, rollout_steps=8, seq_len=4, feature_dim=16))],
+    ids=["ppo_full", "ppo_rnn", "ppg"])
+def test_the_other_ppo_trainers_scan_eagerly_on_the_card_too(holder, monkeypatch, cls, cfg):
+    trainer = cls(cfg, device="cpu")
+    ts = trainer.init(0)
+    trainer.device = torch.device("cuda")  # what the graph route would read
+    assert trainer._graphed()
+    module = sys.modules[cls._collect.__module__]
+    monkeypatch.setattr(module, "rollout_scan", base.rollout_scan)  # the counting one
+    trainer._collect(ts)
+    assert Holder.made == [] and len(holder) == 1
+    assert not hasattr(trainer, "rollout_graph")
 
 
 # -- (b) the holder against the eager rollout ----------------------------------------------
-@pytest.mark.parametrize("env", sorted(ENVS))
-def test_warm_up_capture_and_replays_leave_what_eager_rollouts_leave(lib, env):
-    iters = 4
-    eager = _trainer(env)
+@pytest.mark.parametrize("kind,case", PAIRS)
+def test_warm_up_capture_and_replays_leave_what_eager_rollouts_leave(lib, kind, case):
+    iters = 4  # the warm-up, the capture with its replay, two more replays
+    eager = _trainer(kind, case)
     _, want = _collects(eager, eager.init(7), iters)
     ran_eager = list(lib.ran)
     lib.ran.clear()
 
-    trainer = _trainer(env, graphed=True)
+    trainer = _trainer(kind, case, graphed=True)
     ts = trainer.init(7)
     ts, got = _collects(trainer, ts, 1)  # the warm-up: eager
     holder = trainer.rollout_graph
@@ -303,7 +374,7 @@ def test_warm_up_capture_and_replays_leave_what_eager_rollouts_leave(lib, env):
         if holder.captures == 1 and holder.replays == 1:
             graph = TapeGraph.made_graphs[0]
             # the capture ran none of the library: the one replay ran its T steps
-            steps = trainer.cfg.rollout_steps * (env == "lander")
+            steps = trainer.cfg.rollout_steps * trainer.cfg.env_name.startswith("LunarLander")
             assert len(lib.ran) - ran_before_capture == 2 * steps
             assert sum(callable(e) for e in graph.tape) == 2 * steps
     _assert_same_runs(got + rest, want)
@@ -311,49 +382,48 @@ def test_warm_up_capture_and_replays_leave_what_eager_rollouts_leave(lib, env):
     assert (holder.captures, holder.replays, len(TapeGraph.made_graphs)) == (1, iters - 1, 1)
     assert TapeGraph.made_graphs[0].generators == [ts.noise.generator]
     # the carry handed out is the graph's static carry, so nothing is copied in next time
-    assert all(a is b for a, b in zip(_leaves((ts.vec_state, ts.obs_rms)), holder.static))
+    assert all(a is b for a, b in zip(_leaves(_carry_of(trainer, ts)), holder.static))
+    if case == "lstm_pscn":  # episodes ended, so the graph reset hiddens at done
+        assert any(bool(r["stats"][2].any()) for r in rest)
 
 
-def _train_iters(trainer, ts, n):
-    outs = []
-    for _ in range(n):
-        ts, out = trainer.train_iter(ts)
-        outs.append(out)
-    return ts, outs
-
-
-def _tap_sgd(monkeypatch, trainer, seen):
-    sgd = trainer._sgd
-    monkeypatch.setattr(trainer, "_sgd", lambda t, packed, perms: seen.append(
-        (packed.clone(), perms.clone())) or sgd(t, packed, perms))
-
-
-@pytest.mark.parametrize("env", sorted(ENVS))
-def test_graphed_train_iters_equal_the_eager_ones(lib, monkeypatch, env):
-    states, rows, stats = [], [], []
+@pytest.mark.parametrize("kind,case", PAIRS)
+def test_graphed_train_iters_equal_the_eager_ones(lib, monkeypatch, kind, case):
+    states, rows, outs = [], [], []
     for graphed in (False, True):
-        trainer = _trainer(env, graphed)
-        seen = []
-        _tap_sgd(monkeypatch, trainer, seen)
-        ts, outs = _train_iters(trainer, trainer.init(3), 3)
+        trainer = _trainer(kind, case, graphed)
+        name, perms_at = KINDS[kind][4]
+        update, seen = getattr(trainer, name), []
+        monkeypatch.setattr(trainer, name, lambda t, packed, *rest: seen.append(
+            (packed.clone(), rest[perms_at].clone())) or update(t, packed, *rest))
+        ts = trainer.init(3)
+        got = []
+        for _ in range(3):
+            ts, out = trainer.train_iter(ts)
+            got.append((out.ep_return, out.ep_length, out.ep_done, out.metrics))
+        if graphed:
+            assert (trainer.rollout_graph.captures, trainer.rollout_graph.replays) == (1, 2)
         states.append(flat_state(state_tree(ts)))
         rows.append(seen)
-        stats.append([(o.ep_return, o.ep_length, o.ep_done, o.metrics) for o in outs])
+        outs.append(got)
     (a, b), (ra, rb) = states, rows
     assert a.keys() == b.keys()
     for k in a:
         assert (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor) else a[k] == b[k]), k
+    assert len(ra) == len(rb) == 3
     assert all(torch.equal(x, y) for (pa, qa), (pb, qb) in zip(ra, rb) for x, y in
                ((pa, pb), (qa, qb)))
-    assert _same(*stats)
+    assert _same(*outs)
 
 
 # -- (c) restores --------------------------------------------------------------------------
-def test_a_restored_state_is_copied_in_and_new_params_or_noise_capture_again(lib, tmp_path):
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_a_restored_state_is_copied_in_and_new_params_or_noise_capture_again(
+        lib, tmp_path, kind):
     path = str(tmp_path / "ckpt.pt")
     runs = {}
     for graphed in (False, True):
-        trainer = _trainer(graphed=graphed)
+        trainer = _trainer(kind, graphed=graphed)
         ts = trainer.init(0)
         ts, _ = _collects(trainer, ts, 2)
         save_checkpoint(path, ts)
@@ -379,13 +449,16 @@ def test_a_restored_state_is_copied_in_and_new_params_or_noise_capture_again(lib
     assert runs[True][1] == [(1, 4), (4, 9)]
 
 
-def test_a_capture_that_fails_raises_and_keeps_no_graph(lib, monkeypatch):
-    trainer = _trainer(graphed=True)
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_a_capture_that_fails_raises_and_keeps_no_graph(lib, monkeypatch, kind):
+    trainer = _trainer(kind, graphed=True)
     ts = trainer.init(0)
     ts, _ = _collects(trainer, ts, 1)
     before = dict(kernels.LAUNCHES)
     generator = ts.noise.generator.get_state()
-    monkeypatch.setattr(trainer, "_norm", lambda rms, obs: obs + float(obs.sum()))  # a sync
+    step = trainer.venv.step
+    monkeypatch.setattr(trainer.venv, "step", lambda state, action, noise: step(
+        state, action + int(action.sum()) * 0, noise))  # a host sync
     with pytest.raises(RuntimeError, match="capturing"):
         trainer._collect(ts)
     holder = trainer.rollout_graph
@@ -394,9 +467,46 @@ def test_a_capture_that_fails_raises_and_keeps_no_graph(lib, monkeypatch):
     assert torch.equal(ts.noise.generator.get_state(), generator)
 
 
-# -- (d) the statistics handed out ---------------------------------------------------------
-def test_iter_out_statistics_survive_the_next_iteration(lib):
-    trainer = _trainer("cartpole", graphed=True)
+# -- (d) a forward replaced at construction ------------------------------------------------
+def _no_rnd_reward(trainer):
+    """The benchmark's ``no_rnd_reward`` fault: each net the trainer makes
+    gets its own ``forward``, which pairs the RND predictor with itself."""
+    make_net = trainer.make_net
+
+    def made(*args, **kw):
+        net = make_net(*args, **kw)
+
+        def forward(h, obs):
+            predict, _ = net.rnd(obs)
+            return (*net.step(h, obs), predict, predict)
+
+        net.forward = forward
+        return net
+
+    trainer.make_net = made
+    return trainer
+
+
+def test_a_forward_replaced_at_construction_is_what_the_graph_captures(lib):
+    iters = 3
+    runs = {}
+    for name, graphed, plant in (("sound", False, False), ("eager", False, True),
+                                 ("graph", True, True)):
+        trainer = _trainer("lstm", graphed=graphed)
+        if plant:
+            _no_rnd_reward(trainer)
+        _, runs[name] = _collects(trainer, trainer.init(5), iters)
+    _assert_same_runs(runs["graph"], runs["eager"])
+    # the replays' rewards are the replacement's: without the RND bonus
+    reward = LSTMRollout._fields.index("reward")
+    for graph, sound in zip(runs["graph"][1:], runs["sound"][1:]):
+        assert not torch.equal(graph["roll"][reward], sound["roll"][reward])
+
+
+# -- (e) the statistics handed out ---------------------------------------------------------
+@pytest.mark.parametrize("kind,case", [("ppo", "cartpole"), ("lstm", "lstm_pscn")])
+def test_iter_out_statistics_survive_the_next_iteration(lib, kind, case):
+    trainer = _trainer(kind, case, graphed=True)
     ts = trainer.init(1)
     outs = []
     for _ in range(4):
