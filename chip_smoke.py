@@ -226,8 +226,10 @@ only if all of them pass.
      inside ``sgd``, launch calls per rollout step, kernels per rollout
      replay and per grad step, the idle share inside ``rollout`` and the
      idle time by span. (c) The same on ``ppo_lstm_lunarlander`` (its
-     rollout replayed, its update eager), over 5 window iterations,
+     rollout and sweep replayed), over 5 window iterations,
      with at least 99% of its kernels put down to a span; both cases give
+     the mean host time of an ``sgd.replay`` span and the kernels a replay
+     of the sweep puts down to it, and
      the kernels, device ms and launch calls an iteration under each of
      ``mhc``, ``mhc.sinkhorn``, ``rnd``, ``rnn.unroll``, ``policy``,
      ``env.step``, ``rollout``, ``gae`` and ``sgd``.
@@ -312,16 +314,22 @@ only if all of them pass.
      global norm of 5 (the clip at 0.5 acts) and 0.05 (it does not): params
      within 1e-6, ``exp_avg`` and ``exp_avg_sq`` within 1e-6 of each tensor's
      largest entry, the norm within 1e-6 relative; whether equal to the bit
-     is printed. (c) One bench-config and one ``ppo_lunarlander`` iteration
-     on the kernels against one with the plain versions patched into
-     ``algos.ppo``, from the same init and noise, under phase 16's rules
-     (``_dist_check``). (d) ms per call of each kernel, its plain version
+     is printed. The same at ``ppo_lstm_lunarlander``'s net (77 tensors,
+     three launches of each kernel a step, each reading all 77 squares) on
+     drawn gradients, with ``foreach`` and without, and its grad step's
+     route (``clip_adam_plain_norm_``: the plain clip, then ``clip_adam``
+     with its clip off) equal to the bit to the plain. (c) One bench-config
+     and one ``ppo_lunarlander`` iteration on the kernels against one with
+     the plain versions patched into ``algos.ppo``, from the same init and
+     noise, under phase 16's rules (``_dist_check``). (d) ms per call of
+     each kernel, its plain version
      and, for ``grad_sq_norms`` and ``clip_adam``, the library call
      (``torch._foreach_norm``; the clip and ``torch.optim.Adam(fused=True)``)
-     at both shapes and at ``ppo_cartpole``'s (64 rows, A = 2), the device
-     times from traces (refused and taken again, at most five times, until
-     the trace holds exactly one kernel a call),
-     and the bound;
+     at both shapes and at ``ppo_cartpole``'s (64 rows, A = 2), and of
+     ``grad_sq_norms`` and ``clip_adam`` at ``ppo_lstm_lunarlander``'s net,
+     the device times from traces (refused and taken again, at most five
+     times, until the trace holds exactly one kernel a call, three at the
+     recurrent net), and the bound;
      each kernel's registers, stack and spills from ``nvcc -Xptxas -v`` on
      both sources, none of either for ``ppo_loss_fwd`` and ``ppo_loss_bwd``
      (every instantiation), ``grad_sq_norms``, ``clip_adam``,
@@ -340,23 +348,27 @@ only if all of them pass.
      (``kernels.ppo.device_terms``) and replayed twice: the capture runs
      nothing, the replays equal two eager launches to the bit. (b) The
      bench config, ``ppo_lunarlander``, ``ppo_cartpole`` and the recurrent
-     ``ppo_lstm_lunarlander`` (its rollout alone a graph; its update, no
-     PPO update kernel, eager), 4 iterations each from ``init(0)`` with
+     ``ppo_lstm_lunarlander`` (its sweep through its ``_sgd``, Adam on
+     ``clip_adam`` after the plain clip, no other update kernel), 4
+     iterations each from ``init(0)`` with
      ``graphs`` off and on (the warm-up, the captures with their replays,
-     two replays): the rows each iteration hands to its update (``_sgd``,
-     ``_epochs``) equal to the bit, and every state entry (params,
+     two replays): the rows each iteration hands to its update (``_sgd``)
+     equal to the bit, and every state entry (params,
      ``exp_avg``, ``exp_avg_sq``, the step counts, the env batch, the
      noise's generator) and every metric equal to the bit, else params and
      moments within ``ADAM_TOL`` and metrics within ``HEAD_RTOL`` with all
      else equal (whether equal to the bit is printed); each update kernel
-     once per grad step and each lander kernel once per env step on both
+     once per grad step (the recurrent trainer's ``clip_adam`` once per
+     piece of ``MAX_TENSORS`` tensors, its 77 in three) and each lander
+     kernel once per env step on both
      paths, counted per replay on the graph; one capture and three replays
      of each graph the trainer has. Each path's rollout and SGD ms (CUDA
      events), env-steps/s, launch calls and kernels per rollout step (one
      rollout traced), launches per grad step (one update traced), the
      ``rollout.capture`` and ``sgd.capture`` spans' seconds and peak
      memory.
-     (c) On ``ppo_lunarlander`` and ``ppo_cartpole`` both paths also save a
+     (c) On ``ppo_lunarlander``, ``ppo_cartpole`` and
+     ``ppo_lstm_lunarlander`` both paths also save a
      checkpoint after iteration 2 and, after iteration 4, restore it into
      ``init(1)`` and run one more iteration: both graphs capture anew (two
      captures and four replays each) and the two paths still agree under
@@ -2692,7 +2704,7 @@ HAND_WRITTEN = {"lander_step": "lunarlander_step", "lander_reset": "lunarlander_
                 "grad_sq_norms": "grad_sq_norms", "clip_adam": "clip_adam"}
 # The span each must be in, on the graph path (``env.step`` where the rollout is eager).
 SPAN_OF_KERNEL = {"lander_step": "rollout.replay", "clip_adam": "sgd"}
-SPAN_LSTM_CASE = "ppo_lstm_lunarlander"  # its rollout replayed, its update eager (mHC, GRU)
+SPAN_LSTM_CASE = "ppo_lstm_lunarlander"  # its rollout and sweep replayed (mHC, GRU, RND)
 SPAN_LSTM_WINDOW_ITERS = 5
 SPAN_MIN_SHARE = 0.99  # of the traced kernels put down to a span
 # The spans whose kernels, device time and launch calls an iteration phase 17 reports.
@@ -2847,6 +2859,7 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
     result = {
         "case": case,
         "rollout_replay_us": _mean_us(totals, "rollout.replay"),
+        "sgd_replay_us": _mean_us(totals, "sgd.replay"),
         "policy_us": _mean_us(totals, "policy"), "env_step_us": _mean_us(totals, "env.step"),
         "window_spans": totals, "rebuilt_in_window": rebuilt,
         "kernels_traced": len(got.kernels),
@@ -2864,6 +2877,8 @@ def phase_spans(device: torch.device, case: str = SPAN_CASE, window: int = SPAN_
                                           for *_, p in got.kernels) / profiled,
         "sgd_kernels_per_grad_step": sum(p is not None and "sgd" in p for *_, p in got.kernels)
         / (profiled * cfg.num_epochs * cfg.num_minibatches),
+        "kernels_per_sgd_replay": sum(p is not None and "sgd.replay" in p
+                                      for *_, p in got.kernels) / profiled,
         "idle_in_rollout": got.idle_ns(t0, t1, inside="rollout") / (t1 - t0),
         "idle_share": got.idle_ns(t0, t1) / (t1 - t0),
         "idle_by_span_s": [[n, ns / 1e9] for n, ns in got.idle_by_span(t0, t1).most_common(10)],
@@ -2954,15 +2969,17 @@ def _traced_kernels(device: torch.device, fn, calls: int) -> tuple[float, float]
     return stats["kernels"] / calls, stats["kernel_ms"] / max(stats["kernels"], 1)
 
 
-def _clean_trace(device: torch.device, fn, calls: int, what: str) -> tuple[float, float | None]:
-    """``_traced_kernels`` of a one-kernel call, taken again until the trace
-    holds exactly one kernel a call: a trace that drops events reads a
-    device time that no kernel took, so it is refused. After
-    ``TRACE_TRIES`` refused traces the device time is None (not measured)."""
+def _clean_trace(device: torch.device, fn, calls: int, what: str,
+                 launches_per_call: int = 1) -> tuple[float, float | None]:
+    """``_traced_kernels`` of a call of ``launches_per_call`` kernels, taken
+    again until the trace holds exactly that many a call: a trace that
+    drops events reads a device time that no kernel took, so it is refused.
+    After ``TRACE_TRIES`` refused traces the device time is None (not
+    measured)."""
     seen = []
     for _ in range(TRACE_TRIES):
         launches, per_kernel = _traced_kernels(device, fn, calls)
-        if launches == 1.0:
+        if launches == launches_per_call:
             return launches, per_kernel
         seen.append(launches)
     log(f"{what}: no clean trace in {TRACE_TRIES} (kernels a call {seen}): device time not "
@@ -3266,11 +3283,30 @@ def _on_kernels(label: str, fn, *args, names=LANDER_KERNELS, **kw):
     return result, counts
 
 
-def _check_update_launches(label: str, counts: dict, grad_steps: int) -> None:
-    """Each update kernel launched once per grad step of ``PPOTrainer``."""
-    wrong = {n: counts[n] for n in UPDATE_KERNELS if counts[n] != grad_steps}
+def _check_update_launches(label: str, counts: dict, grad_steps: int,
+                           per_step: dict | None = None) -> None:
+    """Each update kernel launched ``per_step[name]`` times per grad step:
+    by default once each, as ``PPOTrainer``'s (``_update_per_step``)."""
+    per_step = per_step or dict.fromkeys(UPDATE_KERNELS, 1)
+    wrong = {n: counts[n] for n in UPDATE_KERNELS if counts[n] != grad_steps * per_step[n]}
     if wrong:
-        raise AssertionError(f"{label}: {grad_steps} grad steps, but update launches {wrong}")
+        raise AssertionError(f"{label}: {grad_steps} grad steps of {per_step} launches, but "
+                             f"update launches {wrong}")
+
+
+def _update_per_step(trainer, params: int) -> dict:
+    """Each update kernel's launches a grad step of ``trainer``, whose net
+    has ``params`` tensors: ``PPOTrainer``'s four once each (its table fits
+    one launch); a recurrent trainer's ``grad_step``
+    (``clip_adam_plain_norm_``) ``clip_adam`` alone, once per piece of
+    ``MAX_TENSORS`` tensors."""
+    from gymrl_tpu_torch.algos.ppo import PPOTrainer
+    from gymrl_tpu_torch.kernels import ppo as kp
+
+    if isinstance(trainer, PPOTrainer):
+        return dict.fromkeys(UPDATE_KERNELS, 1)
+    return {"ppo_loss_fwd": 0, "ppo_loss_bwd": 0, "grad_sq_norms": 0,
+            "clip_adam": -(-params // kp.MAX_TENSORS)}
 
 
 # -- phase 19: PPO's update kernels against their plain versions on the card ---------
@@ -3293,8 +3329,12 @@ SQ_NORMS_VIEWS = ((1, 4099), (2, 2050), (3, 7), (0, 4097), (1, 65537), (0, 1), (
 # rows of the loss head beside the minibatches: one block (1, 64), 64 blocks with a ragged
 # last block (16,383) and without (16,384)
 HEAD_ROWS = (1, 64, 16383, 16384)
-# the cases phase 19 (d) times: the bench's 16,384 rows, the CLI's 64 (A = 4 and A = 2)
-UPDATE_TIMED = ("bench", "ppo_lunarlander", "ppo_cartpole")
+# The recurrent full-tricks PPO, whose grad step (``base.grad_step``) runs the clip and Adam
+# alone: its net's 77 tensors take three launches of each.
+RECURRENT_UPDATE_CASE = "ppo_lstm_lunarlander"
+# the cases phase 19 (d) times: the bench's 16,384 rows, the CLI's 64 (A = 4 and A = 2), the
+# recurrent net's clip and Adam
+UPDATE_TIMED = ("bench", "ppo_lunarlander", "ppo_cartpole", RECURRENT_UPDATE_CASE)
 # Float32 operations counted in ppo.cu for a row of A = 4 logits (each add, multiply,
 # compare, select, exp and log as one), and per parameter for the multi-tensor kernels.
 LOSS_FWD_OPS_PER_ROW = 64
@@ -3582,25 +3622,43 @@ def _real_grads(trainer, net, packed, perms, steps: int, norm: float) -> list[li
     return out
 
 
-def _adam_case(trainer, ts, packed, perms, norm: float) -> dict:
-    """Phase 19 (b), one case: ``clip_adam_`` and ``clip_adam_plain_`` each
-    take ``ADAM_STEPS`` steps from copies of the trainer's net and Adam (its
-    moments, step count and ``foreach`` setting), fed the same gradients."""
-    from gymrl_tpu_torch.algos.base import adam, clip_adam_, clip_adam_plain_
-    from gymrl_tpu_torch.kernels.ppo import grad_sq_norms
+def _drawn_grads(net, steps: int, norm: float) -> list[list[torch.Tensor]]:
+    """``steps`` sets of normal draws of the shapes of ``net``'s parameters,
+    each scaled to the global norm ``norm``, on their device."""
+    gen = torch.Generator().manual_seed(7)
+    params = list(net.parameters())
+    out = []
+    for _ in range(steps):
+        g = [torch.randn(p.shape, generator=gen) for p in params]
+        total = torch.linalg.vector_norm(torch.stack([x.double().norm() for x in g]))
+        out.append([(x.double() * (norm / total)).float().to(p.device) for x, p in zip(g, params)])
+    return out
+
+
+def _adam_case(trainer, ts, grads: list[list[torch.Tensor]], norm: float,
+               foreach: bool | None = None, kernel_route: str = "clip_adam_") -> dict:
+    """Phase 19 (b), one case: ``kernel_route`` of ``algos.base``
+    (``clip_adam_``, or ``clip_adam_plain_norm_``, the plain norm's clip
+    before ``clip_adam``) and ``clip_adam_plain_`` each take ``len(grads)``
+    steps from copies of the trainer's net and Adam (its moments and step
+    count; ``foreach`` the trainer's setting unless given), fed the same
+    gradients, of global norm ``norm``."""
+    from gymrl_tpu_torch.algos import base
+    from gymrl_tpu_torch.algos.base import adam, clip_adam_plain_
+    from gymrl_tpu_torch.kernels.ppo import MAX_TENSORS, grad_sq_norms
 
     cfg = trainer.cfg
-    grads = _real_grads(trainer, ts.params, packed, perms, ADAM_STEPS, norm)
+    foreach = cfg.flat_optimizer if foreach is None else foreach
     runs, norms = {}, {"kernel": [], "plain": []}
-    for route, step in (("kernel", clip_adam_), ("plain", clip_adam_plain_)):
+    for route, step in (("kernel", getattr(base, kernel_route)), ("plain", clip_adam_plain_)):
         net = copy.deepcopy(ts.params)
-        opt = adam(list(net.parameters()), cfg.lr, cfg.adam_eps, foreach=cfg.flat_optimizer)
+        opt = adam(list(net.parameters()), cfg.lr, cfg.adam_eps, foreach=foreach)
         opt.load_state_dict(copy.deepcopy(ts.opt_state.state_dict()))
         for g in grads:
             for p, x in zip(net.parameters(), g):
                 p.grad = x.clone()
             gs = [p.grad for p in net.parameters()]
-            if route == "kernel":
+            if route == "kernel" and kernel_route == "clip_adam_":
                 norms[route].append(float(grad_sq_norms(gs).double().sum().sqrt()))
             else:
                 norms[route].append(float(torch.linalg.vector_norm(
@@ -3621,10 +3679,15 @@ def _adam_case(trainer, ts, packed, perms, norm: float) -> dict:
         if float(sk["step"]) != float(sp["step"]):
             raise AssertionError(f"Adam's step {float(sk['step'])} vs {float(sp['step'])}")
     norm_rel = max(abs(a - b) / b for a, b in zip(norms["kernel"], norms["plain"]))
-    return {"foreach": bool(cfg.flat_optimizer), "grad_norm": norm, "steps": ADAM_STEPS,
+    tensors = len(list(nk.parameters()))
+    return {"route": kernel_route, "foreach": bool(foreach), "grad_norm": norm,
+            "steps": len(grads),
+            "tensors": tensors, "pieces": -(-tensors // MAX_TENSORS),
             "adam_step": float(ok.state[next(iter(nk.parameters()))]["step"]),
             "params_abs_err": err["params"], "exp_avg_of_scale": err["exp_avg"],
             "exp_avg_sq_of_scale": err["exp_avg_sq"], "norm_rel_err": norm_rel,
+            # each route's norm against the float64 one the gradients were scaled to
+            "norm_f64_rel_err": {r: max(abs(a - norm) / norm for a in v) for r, v in norms.items()},
             "equal_to_the_bit": bool(equal)}
 
 
@@ -3769,38 +3832,51 @@ def _whole_iterations(device: torch.device) -> dict:
 
 def _update_times(device: torch.device, name: str, calls: int) -> list[dict]:
     """Phase 19 (d) at one case's shape: ms per call and device time of each
-    update kernel, its plain version and the library call, and the bound."""
+    update kernel, its plain version and the library call, and the bound.
+    A PPO case times its loss head on a minibatch and the clip and Adam on
+    that minibatch's gradients; a recurrent case the two multi-tensor
+    kernels alone, on drawn gradients, each once per piece of
+    ``MAX_TENSORS`` tensors. The gradients' global norm is 5, over the
+    clip."""
     from gymrl_tpu_torch.algos.base import clip_adam_plain_, clip_grads_by_global_norm_
-    from gymrl_tpu_torch.algos.ppo import ppo_head_loss_plain
+    from gymrl_tpu_torch.algos.ppo import PPOTrainer, ppo_head_loss_plain
     from gymrl_tpu_torch.kernels import ppo as kp
 
     trainer = _dist_trainer(name, device)
-    ts, packed, perms = _rows_of(trainer)
-    cfg = trainer.cfg
-    mb = _minibatches(trainer, packed, perms, 1)[0]
-    cols = _columns(trainer, mb)
-    logits, values = _net_outputs(trainer, ts.params, mb)
-    lg, v = logits.clone().requires_grad_(True), values.clone().requires_grad_(True)
-    plain_loss, _ = ppo_head_loss_plain(lg, v, *cols, cfg)
-    grad_out = torch.ones((), device=device)
+    cfg, cases, n = trainer.cfg, [], None
+    if isinstance(trainer, PPOTrainer):
+        ts, packed, perms = _rows_of(trainer)
+        mb = _minibatches(trainer, packed, perms, 1)[0]
+        cols = _columns(trainer, mb)
+        logits, values = _net_outputs(trainer, ts.params, mb)
+        lg, v = logits.clone().requires_grad_(True), values.clone().requires_grad_(True)
+        plain_loss, _ = ppo_head_loss_plain(lg, v, *cols, cfg)
+        grad_out = torch.ones((), device=device)
+        grads = _real_grads(trainer, ts.params, packed, perms, 1, 5.0)[0]
+        n = mb.shape[0]
+        col_bytes = 4 * n * 4
+        loss_bytes = _nbytes(logits, values) + col_bytes
+        cases = [
+            ("ppo_loss_fwd", lambda: kp.ppo_loss_fwd(logits, values, *cols, cfg),
+             lambda: ppo_head_loss_plain(logits, values, *cols, cfg), None,
+             loss_bytes + 4 * (1 + len(kp.METRICS)), LOSS_FWD_OPS_PER_ROW * n),
+            ("ppo_loss_bwd", lambda: kp.ppo_loss_bwd(logits, values, *cols, grad_out, cfg),
+             lambda: torch.autograd.grad(plain_loss, (lg, v), retain_graph=True), None,
+             2 * loss_bytes - col_bytes + 4, LOSS_BWD_OPS_PER_ROW * n)]
+    else:
+        ts = trainer.init(0)
+        grads = _drawn_grads(ts.params, 1, 5.0)[0]
     net = ts.params
-    grads = _real_grads(trainer, net, packed, perms, 1, 5.0)[0]
     for p, g in zip(net.parameters(), grads):
-        p.grad = g
+        p.grad = g  # the plain Adam's and the library's step read them
     params = list(net.parameters())
+    pieces = -(-len(params) // kp.MAX_TENSORS)
+    per_call = {"ppo_loss_fwd": 1, "ppo_loss_bwd": 1, "grad_sq_norms": pieces, "clip_adam": pieces}
     opt = ts.opt_state
     sq = kp.grad_sq_norms(grads)
     fused = torch.optim.Adam(params, lr=cfg.lr, eps=cfg.adam_eps, fused=True)
-    n, n_params = mb.shape[0], sum(p.numel() for p in params)
-    col_bytes = 4 * n * 4
-    loss_bytes = _nbytes(logits, values) + col_bytes
-    cases = (
-        ("ppo_loss_fwd", lambda: kp.ppo_loss_fwd(logits, values, *cols, cfg),
-         lambda: ppo_head_loss_plain(logits, values, *cols, cfg), None,
-         loss_bytes + 4 * (1 + len(kp.METRICS)), LOSS_FWD_OPS_PER_ROW * n),
-        ("ppo_loss_bwd", lambda: kp.ppo_loss_bwd(logits, values, *cols, grad_out, cfg),
-         lambda: torch.autograd.grad(plain_loss, (lg, v), retain_graph=True), None,
-         2 * loss_bytes - col_bytes + 4, LOSS_BWD_OPS_PER_ROW * n),
+    n_params = sum(p.numel() for p in params)
+    cases += [
         ("grad_sq_norms", lambda: kp.grad_sq_norms(grads),
          lambda: torch.square(torch.stack(torch._foreach_norm(grads))),
          lambda: torch._foreach_norm(grads), 4 * n_params + 4 * len(grads),
@@ -3808,16 +3884,18 @@ def _update_times(device: torch.device, name: str, calls: int) -> list[dict]:
         ("clip_adam", lambda: kp.clip_adam(opt, grads, sq, cfg.max_grad_norm),
          lambda: clip_adam_plain_(opt, grads, cfg.max_grad_norm),
          lambda: (clip_grads_by_global_norm_(grads, cfg.max_grad_norm), fused.step()),
-         28 * n_params + 4 * len(grads), CLIP_ADAM_OPS_PER_PARAM * n_params),
-    )
+         28 * n_params + 4 * len(grads), CLIP_ADAM_OPS_PER_PARAM * n_params)]
     out = []
     for kernel, fn, plain, library, nbytes, ops in cases:
         bytes_ms, ops_ms = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_F32_OPS_PER_S * 1e3
-        launches, per_kernel = _clean_trace(device, fn, calls, f"{kernel} at {name}")
+        launches, per_kernel = _clean_trace(device, fn, calls, f"{kernel} at {name}",
+                                            per_call[kernel])
         plain_launches, plain_per_kernel = _traced_kernels(device, plain, 5)
-        r = {"kernel": kernel, "case": name, "rows": n, "params": n_params,
-             "ms": _per_call_ms(device, fn, calls), "plain_ms": _per_call_ms(device, plain, calls),
-             "device_ms": per_kernel, "traced_launches_per_call": launches,
+        r = {"kernel": kernel, "case": name, "rows": n, "tensors": len(params),
+             "params": n_params, "ms": _per_call_ms(device, fn, calls),
+             "plain_ms": _per_call_ms(device, plain, calls),
+             "device_ms": None if per_kernel is None else per_kernel * per_call[kernel],
+             "launches_per_call": per_call[kernel], "traced_launches_per_call": launches,
              "plain_device_ms": plain_per_kernel * plain_launches,
              "plain_launches_per_call": plain_launches, "library_ms": None,
              "bytes": nbytes, "ops": ops, "bound_ms": max(bytes_ms, ops_ms),
@@ -3902,23 +3980,39 @@ def _step_launches(device: torch.device, name: str, steps: int = 20) -> dict:
 
 def _update_checks(device: torch.device) -> dict:
     """Phase 19 (a)-(b) on ``device``: the loss head; the squares and clip +
-    Adam, at the bench config's shape (foreach) and ``ppo_lunarlander``'s
-    (per tensor)."""
+    Adam, at the bench config's shape (foreach), ``ppo_lunarlander``'s (per
+    tensor) and the recurrent net's (``RECURRENT_UPDATE_CASE``, both)."""
     out = {"head": _head_phase(device), "adam": [], "sq_norms": []}
+
+    def check(name, trainer, ts, grads, norm, label, foreach=None, route="clip_adam_"):
+        r = _adam_case(trainer, ts, grads, norm, foreach, route)
+        r.update(case=name, clip=label)
+        log("phase 19b clip + Adam: " + json.dumps(r))
+        out["adam"].append(r)
+        bad = {k: r[k] for k in ("params_abs_err", "exp_avg_of_scale", "exp_avg_sq_of_scale",
+                                 "norm_rel_err") if not r[k] <= ADAM_TOL}
+        if bad or (route == "clip_adam_plain_norm_" and not r["equal_to_the_bit"]):
+            raise AssertionError(f"phase 19b {name} {label} {route} foreach={r['foreach']}: "
+                                 f"{bad} > {ADAM_TOL}, equal to the bit {r['equal_to_the_bit']}")
+
     for name in ("bench", "ppo_lunarlander"):
         trainer = _dist_trainer(name, device)
         ts, packed, perms = _rows_of(trainer)
         out["sq_norms"].append(_sq_norms_case(trainer, ts, packed, perms, name))
         for label, norm in ADAM_NORMS.items():
-            r = _adam_case(trainer, ts, packed, perms, norm)
-            r.update(case=name, clip=label)
-            log("phase 19b clip + Adam: " + json.dumps(r))
-            out["adam"].append(r)
-            bad = {k: r[k] for k in ("params_abs_err", "exp_avg_of_scale", "exp_avg_sq_of_scale",
-                                     "norm_rel_err") if not r[k] <= ADAM_TOL}
-            if bad:
-                raise AssertionError(f"phase 19b {name} {label}: {bad} > {ADAM_TOL}")
+            check(name, trainer, ts, _real_grads(trainer, ts.params, packed, perms, ADAM_STEPS,
+                                                 norm), norm, label)
         del trainer, ts
+    # the recurrent net's table, past one launch: drawn gradients, both of Adam's modes, the
+    # kernels' clip and the grad step's (the plain norm, then the kernel: equal to the bit)
+    trainer = _dist_trainer(RECURRENT_UPDATE_CASE, device)
+    ts = trainer.init(0)
+    for label, norm in ADAM_NORMS.items():
+        grads = _drawn_grads(ts.params, ADAM_STEPS, norm)
+        for foreach in (True, False):
+            for route in ("clip_adam_", "clip_adam_plain_norm_"):
+                check(RECURRENT_UPDATE_CASE, trainer, ts, grads, norm, label, foreach, route)
+    del trainer, ts
     for foreach in (True, False):  # the misaligned table, both of Adam's modes
         for label, norm in ADAM_NORMS.items():
             r = _adam_views_case(device, foreach, norm)
@@ -4049,11 +4143,10 @@ def phase_update_kernels(device: torch.device, calls: int = KERNEL_TIMED_CALLS) 
 
 
 # -- phase 20: the captured rollout and sweep against the eager ones ---------------------
-# The recurrent case captures its rollout alone: its update runs eagerly.
 GRAPH_CASES = ("bench", "ppo_lunarlander", "ppo_cartpole", "ppo_lstm_lunarlander")
 GRAPH_ITERS = 4  # the warm-up, the captures with their replays, two more replays
 # saved after iteration 2, restored into a fresh state after GRAPH_ITERS
-GRAPH_RESTORE_CASES = ("ppo_lunarlander", "ppo_cartpole")
+GRAPH_RESTORE_CASES = ("ppo_lunarlander", "ppo_cartpole", "ppo_lstm_lunarlander")
 GRAPH_HOLDERS = ("rollout_graph", "sweep_graph")
 
 
@@ -4154,7 +4247,7 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     """``iters`` iterations of case ``name`` from ``init(0)`` with
     ``trainer.graphs = graphs``: each iteration's wall time, rollout and SGD
     ms (CUDA events), metrics, launches and the rows it hands to its update
-    (PPO's ``_sgd``, the recurrent trainer's ``_epochs``; on the CPU), the
+    (its ``_sgd``; on the CPU), the
     peak memory, the seconds of the graphs' captures (spans), the state on
     the CPU; then one rollout and one update under ``trace`` (launch calls
     and kernels per env step, kernels per grad step). With ``restore``, the
@@ -4173,13 +4266,11 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     cfg = trainer.cfg
     grad_steps = cfg.num_epochs * cfg.num_minibatches
     ts = trainer.init(0)
-    update = "_sgd" if hasattr(trainer, "_sgd") else "_epochs"
-    seen, sgd = [], getattr(trainer, update)
+    seen, sgd = [], trainer._sgd
     clock = PhaseClock(device)
     lander_steps = cfg.rollout_steps if cfg.env_name.startswith("LunarLander") else 0
     out = {"case": name, "graphs": graphs, "grad_steps": grad_steps, "lander_steps": lander_steps,
-           # PPO's update kernels, once a grad step; the recurrent update launches none
-           "update_launches": grad_steps if update == "_sgd" else 0,
+           "update_per_step": _update_per_step(trainer, len(list(ts.params.parameters()))),
            "wall_ms": [], "rollout_ms": [], "sgd_ms": [], "launches": [], "metrics": [],
            "rows": []}
     _sync(device)
@@ -4190,7 +4281,7 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     profiling.clear()
     profiling.enable()
     with tempfile.TemporaryDirectory() as tmp, mock.patch.object(
-            trainer, update, lambda t, packed, *rest: seen.append((packed, rest))
+            trainer, "_sgd", lambda t, packed, *rest: seen.append((packed, rest))
             or sgd(t, packed, *rest)):
         path = os.path.join(tmp, "ckpt.pt")
         for it in range(iters + int(restore)):
@@ -4235,7 +4326,7 @@ def _graph_run(device: torch.device, name: str, graphs: bool, iters: int,
     out["kernels_per_env_step"] = kernel_stats(prof)["kernels"] / cfg.rollout_steps
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp, device) as prof:
-            getattr(trainer, update)(ts, packed, *rest)
+            trainer._sgd(ts, packed, *rest)
             _sync(device)
     out["launches_per_grad_step"] = kernel_stats(prof)["kernels"] / grad_steps
     del prof, trainer, ts, seen, packed, rest
@@ -4301,14 +4392,16 @@ def phase_graph(device: torch.device, cases=GRAPH_CASES, iters: int = GRAPH_ITER
                and not any(c["differ"] for c in checks.values()),
                **{path: {k: r[k] for k in ("wall_ms", "rollout_ms", "sgd_ms", "env_steps_per_s",
                                            "launch_calls_per_env_step", "kernels_per_env_step",
-                                           "launches_per_grad_step", "peak_memory_bytes",
+                                           "launches_per_grad_step", "update_per_step",
+                                           "peak_memory_bytes",
                                            "peak_reserved_bytes", "base_bytes", "capture_s",
                                            *GRAPH_HOLDERS, "launches")}
                   for path, r in (("eager", eager), ("graph", graph))}}
         log("phase 20b graphs: " + json.dumps(row))
         for path, r in (("eager", eager), ("graph", graph)):
             for counts in r["launches"] if cuda else ():
-                _check_update_launches(f"phase 20 {name} {path}", counts, r["update_launches"])
+                _check_update_launches(f"phase 20 {name} {path}", counts, r["grad_steps"],
+                                       r["update_per_step"])
                 if any(counts[k] != r["lander_steps"] for k in LANDER_KERNELS):
                     raise AssertionError(f"phase 20 {name} {path}: {r['lander_steps']} lander "
                                          f"env steps, but launches {counts}")
@@ -4316,13 +4409,13 @@ def phase_graph(device: torch.device, cases=GRAPH_CASES, iters: int = GRAPH_ITER
         engaged = ({"captures": 2 if restore else 1, "replays": iters - 1 + int(restore)}
                    if cuda else none)  # the CPU (a rehearsal) runs eagerly
         for holder in GRAPH_HOLDERS:
-            # a holder the trainer lacks (the recurrent one's sweep) counts none
+            # a holder the trainer lacks counts none
             want = engaged if holder in graph["holders"] else none
             if graph[holder] != want or eager[holder] != none:
                 raise AssertionError(f"phase 20 {name}: {holder} {graph[holder]} (want {want}), "
                                      f"eager {eager[holder]}")
         if not all(rows):
-            raise AssertionError(f"phase 20 {name}: the rows handed to _sgd differ at "
+            raise AssertionError(f"phase 20 {name}: the rows handed to the update differ at "
                                  f"iterations {[i for i, ok in enumerate(rows) if not ok]}")
         for label, c in checks.items():
             exact = [k for k in c["differ"] if not k.startswith("ts.params.")

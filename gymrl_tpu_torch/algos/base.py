@@ -13,9 +13,9 @@ family's loops are the port's ``lax.scan``, written once: ``rollout_scan``,
 ``sweep`` and ``to_chunks``. They run eagerly, but for these parts: on a
 CUDA device without a mesh, while ``trainer.graphs`` is True (the default),
 the rollouts of ``PPOTrainer`` and ``PPOLSTMTrainer`` (``_rollout_route``,
-``RolloutGraph``) and ``PPOTrainer``'s sweep (``SweepGraph``) are each one
-replay of a captured CUDA graph. Everything under a mesh, the CPU, the
-recurrent update and the other trainers' rollouts and updates run eagerly.
+``RolloutGraph``) and their sweeps (``_sweep_route``, ``SweepGraph``) are
+each one replay of a captured CUDA graph. Everything under a mesh, the CPU,
+and the other trainers' rollouts and updates run eagerly.
 
 Under a ``mesh`` (``distributed/mesh.py``) each rank steps its share of the
 env batch and computes its share of every minibatch. A rank's loss is its
@@ -29,11 +29,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import gc
 from typing import Any, Callable, NamedTuple
 
 import torch
 from torch import nn
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from gymrl_tpu_torch import kernels
 from gymrl_tpu_torch.core.noise import Noise, ShardedNoise
@@ -145,6 +146,23 @@ def clip_adam_(opt: torch.optim.Adam, grads: list[torch.Tensor], max_norm: float
     ppo_kernels.clip_adam(opt, grads, sq, max_norm)
 
 
+def clip_adam_plain_norm_(opt: torch.optim.Adam, grads: list[torch.Tensor],
+                          max_norm: float) -> None:
+    """``clip_adam_plain_``'s update to the bit, with Adam's step on the
+    card in the ``clip_adam`` kernel: ``clip_grads_by_global_norm_`` (the
+    float32 norm of ``torch._foreach_norm``), then the kernel with its own
+    clip off (zero squares, a scale of exactly 1), whose Adam rounds op for
+    op as ``torch.optim.Adam``'s. So a captured sweep (``SweepGraph``)
+    reads Adam's step terms on the card, while the norm is summed as the
+    plain path sums it: a norm summed otherwise (``grad_sq_norms``' float64
+    sum) moves the clip scale by an ulp, which a long chain of grad steps
+    can grow. ``clip_adam_plain_`` on the CPU."""
+    if grads and grads[0] is not None and grads[0].device.type == "cpu":
+        return clip_adam_plain_(opt, grads, max_norm)
+    clip_grads_by_global_norm_(grads, max_norm)
+    ppo_kernels.clip_adam(opt, grads, grads[0].new_zeros(len(grads)), max_norm)
+
+
 def frozen_copy(net: nn.Module) -> nn.Module:
     """A target network: a copy of ``net`` whose params take no gradients."""
     return copy.deepcopy(net).requires_grad_(False)
@@ -200,7 +218,10 @@ def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
     ppo_lstm's frozen RND target) gets a zero gradient, so Adam still
     decays its moments and counts the step, as optax does. Under a
     ``mesh``, ``mb`` is this rank's share: gradients and metrics are
-    averaged over ``data`` in one all-reduce before the clip."""
+    averaged over ``data`` in one all-reduce before the clip. The clip and
+    Adam are ``clip_adam_plain_norm_``: Adam's step in the ``clip_adam``
+    kernel on the card, so that a captured sweep (``SweepGraph``) reads its
+    step terms there."""
     loss, metrics = loss_fn(net, mb)
     opt.zero_grad(set_to_none=True)
     loss.backward()
@@ -213,7 +234,7 @@ def grad_step(net: nn.Module, opt: torch.optim.Optimizer,
         vec = torch.stack([v.float() for v in metrics.values()])
         mesh.mean_([p.grad for p in params] + [vec])
         metrics = dict(zip(metrics.keys(), vec.unbind()))
-    clip_adam_plain_(opt, [p.grad for p in params], max_grad_norm)
+    clip_adam_plain_norm_(opt, [p.grad for p in params], max_grad_norm)
     return metrics
 
 
@@ -341,9 +362,12 @@ class CapturedGraph:
         """``(graph, out)``: ``body()`` captured on the side stream, the
         random ``generators`` it draws from registered with the graph, so
         that each replay draws from their offsets at the time and advances
-        them as the eager body would."""
+        them as the eager body would. Garbage is collected first, as
+        ``torch.cuda.graph`` does: a graph of an earlier trainer that the
+        collector freed during the capture would end it."""
         if self.cuda:
             torch.cuda.synchronize(self.device)
+        gc.collect()
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
             graph.register_generator_state(gen)
@@ -376,7 +400,7 @@ class SweepGraph(CapturedGraph):
 
     ``run(net, opt, body, inputs)`` copies ``inputs`` into the holder's
     static buffers and runs ``body(static)``, the eager sweep of ``steps``
-    Adam steps of ``opt`` on ``net``, returning one tensor:
+    Adam steps of ``opt`` on ``net``, returning a tensor or a dict of them:
       * the first run is ``CapturedGraph``'s warm-up;
       * a run whose ``graph_key`` differs from the captured one (a restore's
         ``load_state_dict`` replaces Adam's state) captures ``body`` anew on
@@ -393,7 +417,7 @@ class SweepGraph(CapturedGraph):
       * ``opt.zero_grad(set_to_none=True)``: every step's backward makes its
         grads in the graph's pool; after a replay ``p.grad`` is the last
         step's, as after the eager sweep.
-    The returned tensor is a copy: the next replay overwrites the graph's.
+    The returned tensors are copies: the next replay overwrites the graph's.
     Each route is a span of ``utils.profiling``: ``sgd.warmup``,
     ``sgd.capture``, ``sgd.replay``.
     """
@@ -409,8 +433,8 @@ class SweepGraph(CapturedGraph):
         self.grads: list[torch.Tensor] = []
 
     def run(self, net: nn.Module, opt: torch.optim.Adam,
-            body: Callable[[dict[str, torch.Tensor]], torch.Tensor],
-            inputs: dict[str, torch.Tensor]) -> torch.Tensor:
+            body: Callable[[dict[str, torch.Tensor]], Any],
+            inputs: dict[str, torch.Tensor]) -> Any:
         for name, x in inputs.items():
             held = self.static.get(name)
             if held is None or held.shape != x.shape or held.dtype != x.dtype:
@@ -440,7 +464,7 @@ class SweepGraph(CapturedGraph):
         self.grads = [p.grad for p in net.parameters()]
         self.captures += 1
 
-    def _replay(self, net: nn.Module, opt: torch.optim.Adam) -> torch.Tensor:
+    def _replay(self, net: nn.Module, opt: torch.optim.Adam) -> Any:
         terms, count = ppo_kernels.adam_run_terms(opt, self.steps)
         if self.copied is not None:
             self.copied.synchronize()  # the last replay's copy has read the pinned rows
@@ -454,7 +478,7 @@ class SweepGraph(CapturedGraph):
             state["step"].fill_(count)
         for p, g in zip(net.parameters(), self.grads):
             p.grad = g
-        return self.out.clone()
+        return tree_map(torch.Tensor.clone, self.out)
 
 
 class RolloutGraph(CapturedGraph):
@@ -578,11 +602,10 @@ class Trainer:
         self.device = resolve_device(device if mesh is None else mesh.device_for(device))
         n = getattr(cfg, "num_envs", None)
         self.local_envs = n if mesh is None else mesh.local_count(n, "num_envs")
-        # Whether a trainer that captures its rollout (PPOTrainer,
-        # PPOLSTMTrainer) or its SGD sweep (PPOTrainer), on a CUDA device
-        # without a mesh, replays them as CUDA graphs (RolloutGraph,
-        # SweepGraph); False runs them eagerly. The counterpart of the JAX
-        # Trainer's ``donate``.
+        # Whether a trainer that captures its rollout and its SGD sweep
+        # (PPOTrainer, PPOLSTMTrainer), on a CUDA device without a mesh,
+        # replays them as CUDA graphs (RolloutGraph, SweepGraph); False runs
+        # them eagerly. The counterpart of the JAX Trainer's ``donate``.
         self.graphs = True
 
     def _graphed(self) -> bool:
@@ -615,6 +638,22 @@ class Trainer:
                 self.rollout_graph = RolloutGraph(self.device)
             carry, (roll, stats) = self.rollout_graph.run(net, noise, carry, scan)
             return carry, roll, tuple(x.clone() for x in stats)  # the next replay overwrites
+
+    def _sweep_route(self, ts, body: Callable[[dict[str, torch.Tensor]], Any],
+                     inputs: dict[str, torch.Tensor]) -> Any:
+        """``body(inputs)``: the epoch × minibatch sweep of ``ts``'s net and
+        Adam, returning its metrics' means (a vector or a dict of scalars).
+        On a CUDA device without a mesh, while ``graphs`` is on, one replay
+        of ``self.sweep_graph`` (made at the first run, its eager warm-up):
+        ``body`` reads its inputs from the graph's static buffers, and the
+        means are copies of the graph's, of the structure ``body`` gave at
+        the capture. Else eager."""
+        if not self._graphed():
+            return body(inputs)
+        if self.sweep_graph is None:
+            self.sweep_graph = SweepGraph(self.device,
+                                          self.cfg.num_epochs * self.cfg.num_minibatches)
+        return self.sweep_graph.run(ts.params, ts.opt_state, body, inputs)
 
     # -- the mesh's hooks: identities without one -------------------------------
     def _noise(self, seed: int):

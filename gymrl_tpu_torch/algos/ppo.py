@@ -430,17 +430,9 @@ class PPOTrainer(Trainer):
         """Epochs of shuffled minibatches; returns metrics averaged over all
         gradient steps. On a CUDA device without a mesh, while ``graphs``
         is on, the sweep is one replay of a captured CUDA graph
-        (``SweepGraph``; its first run is the eager warm-up); else eager."""
-        if not self._graphed():
-            means = self._sweep(ts, packed, perms)
-        else:
-            cfg = self.cfg
-            if self.sweep_graph is None:
-                self.sweep_graph = SweepGraph(self.device, cfg.num_epochs * cfg.num_minibatches)
-            means = self.sweep_graph.run(
-                ts.params, ts.opt_state,
-                lambda static: self._sweep(ts, static["packed"], static["perms"]),
-                {"packed": packed, "perms": perms})
+        (``_sweep_route``, ``SweepGraph``); else eager."""
+        means = self._sweep_route(ts, lambda x: self._sweep(ts, x["packed"], x["perms"]),
+                                  {"packed": packed, "perms": perms})
         return dict(zip(METRICS, means.unbind()))
 
     def _sweep(self, ts: PPOTrainState, packed: torch.Tensor,

@@ -30,11 +30,16 @@ The training re-unroll (``_seq_forward``) runs the RND pair, the backbone,
 the cell's input maps and the heads once over all ``mb·L`` steps; only the
 cell's hidden side is a loop over L. ``train_iter`` updates the net and
 optimizer in place and makes no host sync. On a CUDA device without a mesh,
-while ``trainer.graphs`` is on, the T-step rollout is one replay of a
-captured CUDA graph (``Trainer._rollout_route``, as ``PPOTrainer``'s); the
-rest of the iteration, the update included, runs eagerly. Every draw comes from
-``ts.noise`` in the reference's order: per rollout step the action's
-Gumbels, then the env's draws; then one permutation per epoch.
+while ``trainer.graphs`` is on, the T-step rollout and the epoch ×
+minibatch sweep are each one replay of a captured CUDA graph
+(``Trainer._rollout_route``, ``Trainer._sweep_route``, as ``PPOTrainer``'s),
+Adam's step on the ``clip_adam`` kernel after the plain clip; the successor
+forward, GAE and the packing run eagerly between them. The
+entropy coefficient, annealed every iteration, reaches the captured loss as
+a buffer on the card, the lr as ``clip_adam``'s step terms. Every draw
+comes from ``ts.noise`` in the reference's order: per rollout step the
+action's Gumbels, then the env's draws; then one permutation per epoch,
+drawn outside the graphs.
 
 Under a ``mesh`` each data rank steps its share of the envs with their
 packed hiddens and computes their successor values and GAE per env column;
@@ -55,8 +60,8 @@ import torch
 from torch import nn
 
 from gymrl_tpu_torch.algos.base import (
-    IterOut, PhaseTimer, RecurrentTrainer, RolloutGraph, SeqRolloutSizes, adam, assert_flat_tp_ok,
-    masked_mean, pack_fields, to_chunks,
+    IterOut, PhaseTimer, RecurrentTrainer, RolloutGraph, SeqRolloutSizes, SweepGraph, adam,
+    assert_flat_tp_ok, masked_mean, pack_fields, to_chunks,
 )
 from gymrl_tpu_torch.algos.ppo import categorical_logp_entropy, gumbel_sample, pick_action
 from gymrl_tpu_torch.algos.ppo_full import SiluRMSMLP, annealed
@@ -214,6 +219,7 @@ class PPOLSTMTrainer(RecurrentTrainer):
         self.obs_dim = self.venv.env.obs_dim
         self.n_actions = self.venv.env.n_actions
         self.rollout_graph: RolloutGraph | None = None  # made at the first rollout it runs
+        self.sweep_graph: SweepGraph | None = None  # made at the first sweep it runs
 
     def make_net(self, generator: torch.Generator | None = None) -> LSTMActorCritic:
         return LSTMActorCritic(self.obs_dim, self.n_actions, self.cfg, generator)
@@ -256,9 +262,10 @@ class PPOLSTMTrainer(RecurrentTrainer):
         ``train_iter`` span, and its ``rollout``, ``gae`` and ``sgd`` spans
         each close just before their phase's ``timer`` call, as
         ``PPOTrainer``'s do. On the graph route the returned ``vec_state``
-        and ``hidden`` are the graph's carry (``_rollout_route``), and every
+        and ``hidden`` are the graph's carry (``_rollout_route``), every
         reader of the rollout in the graph's pool (the successor forward,
-        GAE, ``_chunks``, ``pack_fields``) runs within this iteration."""
+        GAE, ``_chunks``, ``pack_fields``) runs within this iteration, and
+        the sweep is one replay (``_sgd``)."""
         cfg = self.cfg
         mark = timer or (lambda phase: None)
         with span("train_iter"):
@@ -284,8 +291,7 @@ class PPOLSTMTrainer(RecurrentTrainer):
                 for group in ts.opt_state.param_groups:
                     group["lr"] = lr
                 perms = ts.noise.permutations(cfg.num_epochs, packed.shape[0])
-                metrics = self._epochs(ts, packed, spec, perms,
-                                       lambda net, mb: self._loss(net, mb, ent_coef))
+                metrics = self._sgd(ts, packed, spec, perms, ent_coef)
             mark("sgd")
 
             new_ts = ts._replace(vec_state=vec_state, hidden=hidden,
@@ -315,6 +321,22 @@ class PPOLSTMTrainer(RecurrentTrainer):
 
         return self._rollout_route(ts.params, ts.noise, (ts.vec_state, ts.hidden), step)
 
+    def _sgd(self, ts: LSTMTrainState, packed: torch.Tensor, spec: dict, perms: torch.Tensor,
+             ent_coef: float) -> dict[str, torch.Tensor]:
+        """Epochs of shuffled minibatches (``_epochs``); returns the metrics
+        averaged over every grad step. On a CUDA device without a mesh, while
+        ``graphs`` is on, the sweep is one replay of a captured CUDA graph
+        (``_sweep_route``, ``SweepGraph``), as ``PPOTrainer``'s: the packed
+        rows, the permutations and the entropy coefficient, a 0-d float32
+        tensor the loss reads, are the graph's inputs, copied in before each
+        replay, and the group's lr reaches ``clip_adam`` through its step
+        terms. Else eager."""
+        ent_coef = torch.full((), ent_coef, dtype=torch.float32, device=self.device)
+        return self._sweep_route(
+            ts, lambda x: self._epochs(ts, x["packed"], spec, x["perms"],
+                                       lambda net, mb: self._loss(net, mb, x["ent_coef"])),
+            {"packed": packed, "perms": perms, "ent_coef": ent_coef})
+
     def _chunks(self, roll: LSTMRollout, adv, returns) -> dict[str, torch.Tensor]:
         """The training sequences: each env column cut into ``seq_len``-step
         chunks (``to_chunks``), with the stored hidden at each chunk's start."""
@@ -334,7 +356,9 @@ class PPOLSTMTrainer(RecurrentTrainer):
         logits, values = net.heads(outs)
         return logits, values, predict.reshape(mb, L, -1), target.reshape(mb, L, -1)
 
-    def _loss(self, net, mb: dict, ent_coef: float):
+    def _loss(self, net, mb: dict, ent_coef: float | torch.Tensor):
+        """The minibatch loss and its metrics. ``ent_coef`` is a float, or
+        from ``_sgd`` a 0-d float32 tensor: the same product."""
         cfg = self.cfg
         logits, values, predict, target = self._seq_forward(net, mb["h0"], mb["obs"])
         logp, entropy = categorical_logp_entropy(logits, mb["action"])

@@ -12,8 +12,12 @@ around PyTorch's MLP forward and backward:
     param, ``exp_avg`` and ``exp_avg_sq`` tensors, in place. Plain version:
     ``algos.base.clip_adam_plain_``.
 
-The dispatch (``algos.ppo.ppo_head_loss``, ``algos.base.clip_adam_``) sends
-CUDA tensors here and CPU tensors to the plain versions. A wrapper refuses
+The recurrent and full-tricks trainers' grad step (``algos.base.grad_step``)
+runs ``clip_adam`` alone after the plain clip, its own clip off
+(``algos.base.clip_adam_plain_norm_``). The dispatch
+(``algos.ppo.ppo_head_loss``, ``algos.base.clip_adam_``,
+``clip_adam_plain_norm_``) sends CUDA tensors here and CPU tensors to the
+plain versions. A wrapper refuses
 a CPU tensor, launches its kernel or raises, and adds one to
 ``kernels.LAUNCHES[name]`` where it launches.
 

@@ -43,7 +43,6 @@ from torch.utils._pytree import tree_flatten
 
 from gymrl_tpu_torch import kernels
 from gymrl_tpu_torch.algos import base
-from gymrl_tpu_torch.algos import ppo as ppo_mod
 from gymrl_tpu_torch.algos.ppg import PPGConfig, PPGTrainer
 from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
 from gymrl_tpu_torch.algos.ppo_full import PPOFullConfig, PPOFullTrainer
@@ -201,7 +200,7 @@ def lib(monkeypatch):
     monkeypatch.setattr(TapeGraph, "capturing", None)
     monkeypatch.setattr(TapeGraph, "made_graphs", [])
     monkeypatch.setattr(torch.cuda, "CUDAGraph", TapeGraph)
-    monkeypatch.setattr(ppo_mod, "SweepGraph", EagerSweep)
+    monkeypatch.setattr(base, "SweepGraph", EagerSweep)
     return fake
 
 

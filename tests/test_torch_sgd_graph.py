@@ -33,7 +33,6 @@ import torch
 
 from gymrl_tpu_torch import kernels
 from gymrl_tpu_torch.algos import base
-from gymrl_tpu_torch.algos import ppo as ppo_mod
 from gymrl_tpu_torch.algos.base import SweepGraph, adam, graph_key
 from gymrl_tpu_torch.algos.ppo import PPOConfig, PPOTrainer
 from gymrl_tpu_torch.kernels import ppo as kp
@@ -309,6 +308,18 @@ def test_a_failed_capture_raises_and_takes_its_launches_back(lib, graphs):
         holder.run(net, opt, _body(net, opt, _grads(net), steps=K + 1), rows)
 
 
+def test_a_capture_collects_garbage_before_it_begins(monkeypatch, graphs):
+    """On the card a graph that the collector frees during a capture ends
+    it, so the holder collects first, as ``torch.cuda.graph`` does."""
+    order = []
+    monkeypatch.setattr(base.gc, "collect", lambda: order.append("collect"))
+    begin = FakeGraph.capture_begin
+    monkeypatch.setattr(FakeGraph, "capture_begin",
+                        lambda self: order.append("begin") or begin(self))
+    base.CapturedGraph(torch.device("cpu"))._record(lambda: order.append("body"))
+    assert order == ["collect", "begin", "body"]
+
+
 # -- (e) the CPU trainer -------------------------------------------------------------------
 class NoGraph:
     def __init__(self, *args, **kw):
@@ -318,7 +329,7 @@ class NoGraph:
 def test_cpu_train_iter_never_makes_a_graph_and_gives_the_same_bits(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", NoGraph)
     monkeypatch.setattr(torch.cuda, "Stream", NoGraph)
-    monkeypatch.setattr(ppo_mod, "SweepGraph", NoGraph)
+    monkeypatch.setattr(base, "SweepGraph", NoGraph)
     runs = []
     for on in (True, False):
         trainer = _trainer()
@@ -368,7 +379,7 @@ def test_only_a_cuda_trainer_without_a_mesh_takes_the_graph(monkeypatch, case, g
         def run(self, net, opt, body, inputs):
             return torch.zeros(5)
 
-    monkeypatch.setattr(ppo_mod, "SweepGraph", Holder)
+    monkeypatch.setattr(base, "SweepGraph", Holder)
     monkeypatch.setattr(trainer, "_sweep", lambda *a: swept.append(a) or torch.zeros(5))
     if case != "cpu":
         trainer.device = torch.device("cuda")  # only the route reads it here
