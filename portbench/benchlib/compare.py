@@ -8,7 +8,10 @@ the update takes them, or None}``; ``leaves()`` and ``moments()``, the
 parameters and the optimizer's first moments by name. The reference side
 (``reference/<name>.py``, named by the configuration's ``reference``) adds
 ``loss(cfg, metrics)`` and ``judge_rows(rows)``; the program side
-(``programs/<name>.py``, its ``program``) reads the port's train state.
+(``programs/<name>.py``, its ``program``) reads the port's train state and
+tells the harness how its trainer runs: ``PHASES``, the marks its
+``train_iter`` makes (``benchlib/program.py`` ``phases``), and
+``env_steps(cfg)``, the env steps of an iteration at the cell's settings.
 
 ``summarize`` drives a side through ``SETUP_ITERS`` iterations: each
 iteration's metrics and episodes, every leaf's first moment after the first

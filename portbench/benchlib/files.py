@@ -69,8 +69,10 @@ ABOUT = ("trainer", "config_class", "source", "published", "reduced", "assumed",
 
 def run_config(the_cell: dict, bench_dir: str = BENCH_DIR) -> dict:
     """The trainer's settings as the cell runs them: the configuration's,
-    with the traffic mix's ``schedule`` (batch, horizon, epochs, minibatch)
-    over them."""
+    with the traffic mix's ``schedule`` over them, each under the trainer
+    config's own name for it (PPO: ``num_envs``, ``rollout_steps``,
+    ``num_epochs``, ``minibatch_size``; off-policy: ``num_envs``,
+    ``steps_per_iter``, ``batch_size``)."""
     conf = config(the_cell["config"], bench_dir)
     mix = traffic(the_cell["traffic"], bench_dir)
     return {**{k: v for k, v in conf.items() if k not in ABOUT}, **mix["schedule"]}

@@ -19,8 +19,7 @@ from benchlib import compare, files, program
 from benchlib.stats import PEAKS, busy_ns, is_copy, merged, percentile
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "gymrl_tpu")
-PROFILED_ITERS = 3  # the traced iterations after the window: three grad sweeps
-PHASES = ("rollout", "gae", "sgd")
+PROFILED_ITERS = 3  # the traced iterations after the window
 HOST_SPAN = "portbench."
 
 
@@ -53,24 +52,36 @@ def _sync(device: torch.device) -> None:
 
 class PhaseEvents:
     """The ``train_iter`` timer: a CUDA event at the iteration's start and at
-    the end of each phase, and, while ``spans`` is on, a host span per phase
-    (``portbench.<phase>``) for the profiler's trace."""
+    each mark the trainer makes and, while ``spans`` is on, a host span per
+    interval for the profiler's trace.
 
-    def __init__(self, device: torch.device):
+    ``phases`` are the marks the program side ``side`` declares (``PHASES``,
+    in the order its trainer makes them; a mark may repeat within an
+    iteration, as an off-policy trainer's ``"act"`` and ``"update"`` do at
+    every env step); another mark is refused.
+    An interval is named by the mark that ends it, the one after the last
+    mark ``fetch``; a host span is numbered (``portbench.<n>``) and named
+    once its interval ends (``label``)."""
+
+    def __init__(self, device: torch.device, phases: tuple[str, ...], side: str):
         self.cuda = device.type == "cuda"
-        self.rows: list[list] = []
+        self.phases, self.side = tuple(phases), side
+        self.rows: list[list] = []  # an iteration's events: its start, then one a mark
+        self.marks: list[list[str]] = []  # an iteration's marks, in order
+        self.labels: list[str] = []  # host span n's interval name
         self.spans = False
         self._open = None
 
-    def _enter(self, name: str) -> None:
+    def _enter(self) -> None:
         if self.spans:
-            self._open = torch.profiler.record_function(HOST_SPAN + name)
+            self._open = torch.profiler.record_function(f"{HOST_SPAN}{len(self.labels)}")
             self._open.__enter__()
 
-    def _exit(self) -> None:
+    def _exit(self, label: str) -> None:
         if self._open is not None:
             self._open.__exit__(None, None, None)
             self._open = None
+            self.labels.append(label)
 
     def _event(self):
         if not self.cuda:
@@ -81,22 +92,36 @@ class PhaseEvents:
 
     def start(self) -> None:
         self.rows.append([self._event()])
-        self._enter(PHASES[0])
+        self.marks.append([])
+        self._enter()
 
     def __call__(self, phase: str) -> None:
+        if phase not in self.phases:
+            raise ValueError(f"{self.side} marked {phase!r}, which its PHASES "
+                             f"{self.phases} do not declare")
         self.rows[-1].append(self._event())
-        self._exit()
-        i = PHASES.index(phase)
-        self._enter(PHASES[i + 1] if i + 1 < len(PHASES) else "fetch")
+        self.marks[-1].append(phase)
+        self._exit(phase)
+        self._enter()
 
     def end(self) -> None:
-        self._exit()
+        self._exit("fetch")
 
     def phase_ms(self) -> list[dict[str, float]]:
+        """Each iteration's ms by mark: the sum of the intervals that end at it."""
         if not self.cuda:
             return []
-        return [{p: a.elapsed_time(b) for p, a, b in zip(PHASES, row, row[1:])}
-                for row in self.rows]
+        out = []
+        for row, marks in zip(self.rows, self.marks):
+            ms: dict[str, float] = {}
+            for phase, a, b in zip(marks, row, row[1:]):
+                ms[phase] = ms.get(phase, 0.0) + a.elapsed_time(b)
+            out.append(ms)
+        return out
+
+    def label(self, span: str) -> str:
+        """The interval name of this timer's host span ``span``."""
+        return self.labels[int(span[len(HOST_SPAN):])]
 
 
 def _window(trainer, ts, seconds: float, device, events: PhaseEvents | None):
@@ -117,11 +142,11 @@ def _window(trainer, ts, seconds: float, device, events: PhaseEvents | None):
             return ts, times, now - t0
 
 
-def _profiled(trainer, ts, device):
-    """``PROFILED_ITERS`` iterations under the profiler: their kernels
-    ``(name, start_ns, end_ns)``, the host's phase spans, their wall time
-    and the six kernels' launches as the program counted them."""
-    events = PhaseEvents(device)
+def _profiled(trainer, ts, device, events: PhaseEvents):
+    """``PROFILED_ITERS`` iterations under the profiler, timed by ``events``
+    with its host spans on: their kernels ``(name, start_ns, end_ns)``, the
+    host's spans ``(interval name, start_ns, end_ns)``, their wall time and
+    the program's kernels' launches as the program counted them."""
     events.spans = True
     acts = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -144,11 +169,12 @@ def _profiled(trainer, ts, device):
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
         if ev.device_type() == cuda:
-            # a host span's shadow on the device's timeline is no kernel
-            if not is_copy(name) and not name.startswith(HOST_SPAN):
+            # a host range's shadow on the device's timeline (a span of ours, or a
+            # library's record_function, a user annotation) is no kernel
+            if not (is_copy(name) or name.startswith(HOST_SPAN) or ev.is_user_annotation()):
                 kern.append((name, ev.start_ns(), ev.end_ns()))
         elif name.startswith(HOST_SPAN):
-            host.append((name[len(HOST_SPAN):], ev.start_ns(), ev.end_ns()))
+            host.append((events.label(name), ev.start_ns(), ev.end_ns()))
     del prof
     return ts, kern, host, wall, launched
 
@@ -172,16 +198,17 @@ def _breakdown(kern, host) -> dict:
 class RunView:
     """What a metric's reader (``metrics/<name>.py``) reads: the run's
     settings (``cfg``), its configuration's file (``conf``: its env's sizes,
-    its model's work count), its set-up time, the window's iteration times
-    (and, traced, their phase times), and the profiled iterations' kernels
-    and wall time."""
+    its model's work count), the env steps of an iteration as the program
+    side counts them from the settings (``steps_per_iter``), its set-up
+    time, the window's iteration times (and, traced, their phase times by
+    mark), and the profiled iterations' kernels and wall time."""
 
     def __init__(self, conf: dict, cfg: dict, setup_s: float, iter_s: list[float],
                  window_s: float, phases: list[dict] = (), kernels: list[tuple] = (),
                  wall_s: float = 0.0, bench_dir: str = files.BENCH_DIR):
         self.conf, self.bench_dir = conf, bench_dir
         self.cfg, self.setup_s, self.iter_s, self.window_s = cfg, setup_s, iter_s, window_s
-        self.steps_per_iter = cfg["num_envs"] * cfg["rollout_steps"]
+        self.steps_per_iter = files.obj(conf["program"], bench_dir).env_steps(cfg)
         self.phases, self.kernels, self.wall_s = list(phases), list(kernels), wall_s
         self.busy_s = busy_ns([(a, b) for _, a, b in self.kernels]) / 1e9
         self.tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -215,12 +242,14 @@ def run(the_cell: dict, seed: int, seconds: float, trace: bool, device: torch.de
         f"{name} {b - a:.3f}" for (name, _), a, b in zip(stages, marks, marks[1:]))
         + f"; kernels compiled in this process, s: {program.build_seconds()}")
 
-    events = PhaseEvents(device) if trace else None
+    phases = program.phases(side)
+    events = PhaseEvents(device, phases, conf["program"]) if trace else None
     ts, times, window_s = _window(trainer, ts, seconds, device, events)
     result_device: dict = {}
     breakdown = None
     if trace:
-        ts, kern, host, wall, launched = _profiled(trainer, ts, device)
+        ts, kern, host, wall, launched = _profiled(trainer, ts, device,
+                                                   PhaseEvents(device, phases, conf["program"]))
         view = RunView(conf, cfg, setup_s, times, window_s, events.phase_ms(), kern, wall,
                        bench_dir)
         own = sum(len(view.kernel_ns(k)) for k in side.KERNELS)

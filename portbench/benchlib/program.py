@@ -24,6 +24,36 @@ import numpy as np
 import torch
 
 
+# The marks of a trainer whose program side declares no ``PHASES``: the PPO
+# family's three, each once an iteration.
+PHASES = ("rollout", "gae", "sgd")
+
+
+def phases(side) -> tuple[str, ...]:
+    """The marks a program side's trainer makes, in order (its ``PHASES``)."""
+    return tuple(getattr(side, "PHASES", PHASES))
+
+
+class OnPolicy:
+    """What the PPO family's program sides share: an iteration steps
+    ``num_envs × rollout_steps`` env steps and updates on whole minibatches
+    of ``minibatch_size`` of those rows; ``TINY``, the schedule the CPU tests
+    run in seconds."""
+
+    TINY = {"num_envs": 8, "rollout_steps": 8, "num_epochs": 2, "minibatch_size": 16}
+
+    @staticmethod
+    def env_steps(cfg: dict) -> int:
+        return cfg["num_envs"] * cfg["rollout_steps"]
+
+    @staticmethod
+    def check(cfg: dict) -> None:
+        """Refuses settings whose rollout is no whole number of minibatches."""
+        if cfg["num_envs"] * cfg["rollout_steps"] % cfg["minibatch_size"]:
+            raise ValueError(f"{cfg['num_envs']} envs x {cfg['rollout_steps']} steps is no "
+                             f"whole number of {cfg['minibatch_size']}-row minibatches")
+
+
 def trainer_class(spec: str):
     """``"package.module:Class"`` → the class."""
     mod, _, name = spec.partition(":")

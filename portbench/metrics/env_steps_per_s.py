@@ -1,5 +1,6 @@
 """env_steps_per_s: every env step of the iterations the window completed
-(B·T each) over the host time from the window's start to the fetch that
+(each the program side's ``env_steps`` at the cell's settings: B·T for the
+PPO family) over the host time from the window's start to the fetch that
 ends its last iteration."""
 
 

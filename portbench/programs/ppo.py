@@ -5,6 +5,8 @@ timed path (``benchlib/program.py`` ``iteration``) with its loss metrics,
 its finished episodes and, at the first iteration, the packed rows as its
 update takes them (``train_iter`` hands them to ``_sgd``); ``leaves`` and
 ``moments`` read the params and Adam's first moments of the train state.
+Its marks, env steps and tiny schedule are the PPO family's
+(``benchlib/program.py`` ``OnPolicy``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from benchlib import program
 
 
-class Program:
+class Program(program.OnPolicy):
     METRICS = ("policy_loss", "value_loss", "entropy", "clip_frac", "approx_kl")
     # The program's hand-written kernels on this trainer's path, by their names in a
     # trace: a traced run prints their traced count beside ``kernels.LAUNCHES``'.

@@ -6,8 +6,9 @@ its loss metrics, its finished episodes and, at the first iteration, its
 rows: the chunks by field as ``_chunks`` hands them to the packing and the
 update, with each step's ``done`` cut the same way (the judge resets the
 hidden where the rollout did); ``leaves`` and ``moments`` read the params
-and Adam's first moments of the train state. ``Settings`` is the trainer's
-config as a cell's files name it.
+and Adam's first moments of the train state. Its marks, env steps and
+tiny schedule are the PPO family's (``benchlib/program.py`` ``OnPolicy``).
+``Settings`` is the trainer's config as a cell's files name it.
 """
 
 # No ``from __future__ import annotations``: ``benchlib.files.module`` runs
@@ -38,12 +39,12 @@ class Settings(PPOLSTMConfig):
         object.__setattr__(self, "seq_minibatch", self.minibatch_size // self.seq_len)
 
 
-class Program:
+class Program(program.OnPolicy):
     METRICS = ("policy_loss", "value_loss", "entropy", "rnd_loss", "approx_kl", "clip_frac",
                "erc_clip_frac")
     # The program's hand-written kernels on this trainer's path, by their names in a
     # trace: a traced run prints their traced count beside ``kernels.LAUNCHES``'.
-    KERNELS = ("lander_step", "lander_reset")
+    KERNELS = ("lander_step", "lander_reset", "clip_adam")
 
     def __init__(self, trainer, ts):
         self.trainer, self.ts = trainer, ts

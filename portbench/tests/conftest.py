@@ -31,13 +31,28 @@ def card():
 
 @pytest.fixture
 def tiny_bench(tmp_path):
-    """A copy of the benchmark's folder with a tiny traffic mix (8 envs × 8
-    steps, 2 epochs × minibatch 16) that the CPU runs in seconds."""
+    """A copy of the benchmark's folder with a tiny traffic mix for each
+    configuration, ``tiny.<config>``: its program side's ``TINY`` schedule
+    (the PPO family's: 8 envs × 8 steps, 2 epochs × minibatch 16), which the
+    CPU runs in seconds."""
+    import json
     import shutil
+
+    from benchlib import files
 
     dst = tmp_path / "portbench"
     shutil.copytree(BENCH_DIR, dst, ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    (dst / "traffic" / "tiny.json").write_text(
-        '{"schedule": {"num_envs": 8, "rollout_steps": 8, "num_epochs": 2, '
-        '"minibatch_size": 16}}')
+    for entry in files.benchmark()["configs"]:
+        side = files.obj(files.config(entry["name"])["program"])
+        (dst / "traffic" / f"tiny.{entry['name']}.json").write_text(
+            json.dumps({"schedule": side.TINY}))
     return str(dst)
+
+
+def tiny(cell: str) -> dict:
+    """The cell ``cell`` of BENCHMARK.json on its configuration's tiny mix
+    (``tiny_bench``)."""
+    from benchlib import files
+
+    c = files.cell(files.benchmark(), cell)
+    return dict(c, traffic=f"tiny.{c['config']}")

@@ -10,13 +10,14 @@ import torch
 
 from benchlib import files, harness
 
+from conftest import tiny
+
 CELL = "lander32_e10_mb64"
 PLANTS = files.obj(files.config(files.cell(files.benchmark(), CELL)["config"])["faults"])
 
 
 def _run(tiny_bench, cell, plant=None, trace=False):
-    the_cell = dict(files.cell(files.benchmark(), cell), traffic="tiny")
-    return harness.run(the_cell, 20261017, 0.3, trace, torch.device("cpu"),
+    return harness.run(tiny(cell), 20261017, 0.3, trace, torch.device("cpu"),
                        time.perf_counter(), bench_dir=tiny_bench, plant=plant)
 
 

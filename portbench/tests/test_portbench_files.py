@@ -43,8 +43,7 @@ def test_each_cell_resolves_to_its_files(cell):
     assert entry["file"] == f"portbench/configs/{c['config']}.json"
     assert entry["source"] == conf["source"] and entry["reduced"] == conf["reduced"]
     assert set(conf["reduced"]) <= set(conf.get("published", {}))
-    cfg = files.run_config(c)
-    assert cfg["num_envs"] * cfg["rollout_steps"] % cfg["minibatch_size"] == 0
+    files.obj(conf["program"]).check(files.run_config(c))
     assert set(files.limits(cell)) <= set(compare.NUMBERS)
     for key in ("program", "reference", "reference_env", "faults"):
         assert files.obj(conf[key]) is not None, key

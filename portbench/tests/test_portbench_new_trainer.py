@@ -102,6 +102,10 @@ class Program:
                 "rows": self.trainer.last_rows}
 
     @staticmethod
+    def env_steps(cfg):
+        return cfg["num_envs"] * cfg["rollout_steps"]
+
+    @staticmethod
     def params_of(ts):
         return dict(ts.params.named_parameters())
 

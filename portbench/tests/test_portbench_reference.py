@@ -9,7 +9,7 @@ import torch
 
 from benchlib import compare, files, program
 
-from conftest import BENCH_DIR
+from conftest import BENCH_DIR, tiny
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "gymrl_tpu", "gymrl_tpu_torch"}
 
@@ -53,7 +53,7 @@ def test_the_reference_equals_the_ports_cpu_path(tiny_bench, seed, precision):
     """On the CPU the port runs its plain paths; the reference, a frozen copy
     of them with the draws in the program's order, reads every number 0, in
     the configuration's precision and in the port's other options."""
-    the_cell = dict(files.cell(files.benchmark(), "lander32_e10_mb64"), traffic="tiny")
+    the_cell = tiny("lander32_e10_mb64")
     conf = files.config(the_cell["config"])
     cfg = {**files.run_config(the_cell, tiny_bench), **precision}
     cpu = torch.device("cpu")
